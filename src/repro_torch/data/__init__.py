@@ -1,0 +1,1 @@
+"""Synthetic data of the PyTorch port (mirrors ``repro.data``)."""
