@@ -5,26 +5,42 @@
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
-1. device : the card's name, count and power limit.
-2. build  : nvcc of every ``src/repro_torch/csrc/*.cu`` for sm_90a, in
-            parallel, with ptxas' registers and spills per kernel.
-3. kernels: each kernel against its plain PyTorch version on the same
-            inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
-            K=3 stacks; K2 with K=1 and K=3 on a cubic plan from the
-            footpoints of a smooth velocity; K3 with both epilogues).
-4. reference: a 16^3 registration on the card against the same
-            registration through the plain versions on the CPU.
-5. matvec : the plan-path and the fused (K3) Gauss-Newton matvec on one
-            size^3 GradientState, <= 1e-5 * max(scale, 1).
-6. solve  : ``register`` of the size^3 synthetic pair (fd8-cubic,
-            use_fused_matvec=True) with every launch count set to 0 just
-            before and read just after; each kernel of the path must have
-            launched and no plain version may have run.
-7. times  : each kernel at its main-path shape (CUDA events after warm-up)
-            beside its bound, its plain version and the library call that
-            computes the same function, where there is one.
-8. profile: the solve once more under torch.profiler: device time by kernel
-            group and the device's idle share of phase 6's wall time.
+1. device   : the card's name, count and power limit.
+2. build    : nvcc of every ``src/repro_torch/csrc/*.cu`` for sm_90a, in
+              parallel, with ptxas' registers and spills per kernel.
+3. kernels  : each kernel against its plain PyTorch version on the same
+              inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
+              K=3 stacks; K2 with K=1 and K=3 on a cubic plan from the
+              footpoints of a smooth velocity, fp32 and bf16 weights; K3 with
+              both epilogues, fp32 and bf16; K4 for each basis, fp32 and bf16
+              weights, K=1 and K=2, at those footpoints and at the same
+              shifted by -3).
+4. reference: 16^3 registrations on the card (fused plan path; plan-free)
+              against the same registrations through the plain versions on
+              the CPU: equal Newton and PCG counts.
+5. matvec   : the plan-path and the fused (K3) Gauss-Newton matvec on one
+              size^3 GradientState, <= 1e-5 * max(scale, 1).
+6-11. paths : ``register`` / ``register_multires`` / ``warp_labels`` of the
+              size^3 synthetic pair through each path of the port, every
+              launch count set to 0 just before a path and read just after;
+              each kernel of the path must have launched and no plain
+              version may have run:
+              solve          fd8-cubic, fp32, fused matvec (K1, K2, K3)
+              solve_planfree fd8-cubic, use_plan=False, bf16 weights (K1,
+                             bf16 K2 in the characteristics, bf16 K4), then
+                             Dice of warp_labels (K4 linear, fp32)
+              solve_mixed    fd8-cubic, plans, bf16 weights, fused matvec
+                             (K1, bf16 K2, bf16 K3)
+              multires       register_multires, 3 levels, fused matvec
+              variants       plan-free fd8-cubic fp32, fd8-lagrange fp32 and
+                             bf16, fd8-linear bf16, two Newton steps each (the
+                             other K4 variants)
+12. times   : each kernel at its main-path shape (CUDA events after warm-up)
+              beside its bound, its plain version and the library call that
+              computes the same function, where there is one.
+13. profile : the fp32 and the plan-free solve once more under
+              torch.profiler: device time by kernel group and the device's
+              idle share of the unprofiled wall time.
 
 Then the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -50,24 +66,59 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
-PLAN_REL = 1e-5            # K2/K3: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
+PLAN_REL = 1e-5            # K2/K3/K4: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
 MATVEC_REL = 1e-5          # fused vs plan matvec, as tests/test_fused_matvec.py
 REF_V_REL = 1e-4           # 16^3 solve, card vs CPU: max|dv| <= 1e-4 * max|v|
 TIMING_REPS, PLAIN_REPS = 20, 2
 
+_PENCIL = ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:135")
+_K2 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:247")
+_K3 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:339")
+_K4 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:150")
+K4_BASES = ("linear", "cubic_bspline", "cubic_lagrange")
+
+#: kernel (launch-count key) -> (source, Pallas kernel it replaces).
 KERNELS = {
-    # name: (source, Pallas kernel it replaces)
-    "stencil_axis:fd8": ("src/repro_torch/csrc/pencil.cu",
-                         "src/repro/kernels/pencil.py:135"),
-    "stencil_axis:prefilter": ("src/repro_torch/csrc/pencil.cu",
-                               "src/repro/kernels/pencil.py:135"),
-    "apply_plan": ("src/repro_torch/csrc/interp3d.cu",
-                   "src/repro/kernels/interp3d/interp3d.py:247"),
-    "apply_plan_fused:inc_state": ("src/repro_torch/csrc/interp3d.cu",
-                                   "src/repro/kernels/interp3d/interp3d.py:339"),
-    "apply_plan_fused:inc_adjoint": ("src/repro_torch/csrc/interp3d.cu",
-                                     "src/repro/kernels/interp3d/interp3d.py:339"),
+    "stencil_axis:fd8": _PENCIL,
+    "stencil_axis:prefilter": _PENCIL,
+    "apply_plan": _K2,
+    "apply_plan:bf16": _K2,
+    "apply_plan_fused:inc_state": _K3,
+    "apply_plan_fused:inc_adjoint": _K3,
+    "apply_plan_fused:inc_state:bf16": _K3,
+    "apply_plan_fused:inc_adjoint:bf16": _K3,
+    **{f"interp3d:{b}{w}": _K4 for b in K4_BASES for w in ("", ":bf16")},
 }
+
+_K1_KEYS = ["stencil_axis:fd8", "stencil_axis:prefilter"]
+_FUSED = ["apply_plan_fused:inc_state", "apply_plan_fused:inc_adjoint"]
+#: path -> (entry-point keywords, kernels that must launch on it).
+PATHS = {
+    "solve": (dict(variant="fd8-cubic", use_fused_matvec=True),
+              _K1_KEYS + ["apply_plan"] + _FUSED),
+    "solve_planfree": (dict(variant="fd8-cubic", use_plan=False, mixed_precision=True),
+                       _K1_KEYS + ["apply_plan:bf16", "interp3d:cubic_bspline:bf16"]),
+    "solve_mixed": (dict(variant="fd8-cubic", mixed_precision=True, use_fused_matvec=True),
+                    _K1_KEYS + ["apply_plan:bf16"] + [k + ":bf16" for k in _FUSED]),
+}
+#: the plan-free variants that reach the other K4 variants (two Newton steps).
+VARIANT_PATHS = {
+    "planfree:fd8-cubic": (dict(variant="fd8-cubic", use_plan=False),
+                           ["interp3d:cubic_bspline"]),
+    "planfree:fd8-lagrange": (dict(variant="fd8-lagrange", use_plan=False),
+                              ["interp3d:cubic_lagrange"]),
+    "planfree:fd8-lagrange:bf16": (dict(variant="fd8-lagrange", use_plan=False,
+                                        mixed_precision=True),
+                                   ["interp3d:cubic_lagrange:bf16"]),
+    "planfree:fd8-linear:bf16": (dict(variant="fd8-linear", use_plan=False,
+                                      mixed_precision=True),
+                                 ["interp3d:linear:bf16"]),
+}
+#: K4 operations per voxel besides the taps: floor, fraction and weights on
+#: three axes (the B-spline's ~22 per axis; 3 for linear).
+K4_WEIGHT_OPS = {"linear": 9, "cubic_bspline": 66, "cubic_lagrange": 60}
+#: per field and voxel: S^2 weight pairs + S^3 (multiply, multiply, add).
+TAP_OPS = {2: 4 + 24, 4: 16 + 192}
 
 
 def emit(phase: str, **fields) -> None:
@@ -139,6 +190,7 @@ def _kernel_group(key: str) -> str:
     for group, marks in (("K1 stencil_axis", ("stencil_axis",)),
                          ("K3 apply_plan_fused", ("apply_plan_fused",)),
                          ("K2 apply_plan", ("apply_plan_kernel",)),
+                         ("K4 interp3d", ("interp3d_kernel",)),
                          ("cuFFT", ("fft",)),
                          ("reductions", ("reduce",)),
                          ("cuBLAS gemv", ("gemv",)),
@@ -149,19 +201,16 @@ def _kernel_group(key: str) -> str:
     return "other"
 
 
-def profile_solve(pair, dev, unprofiled_wall_s: float) -> None:
-    """The main-path solve once more under torch.profiler: device time by
-    kernel group and the device's idle share of the unprofiled wall time."""
+def profile_solve(label: str, solve, unprofiled_wall_s: float) -> None:
+    """A path's solve once more under torch.profiler: device time by kernel
+    group and the device's idle share of the unprofiled wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import registration as R
-
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        R.register(pair.m0, pair.m1, variant="fd8-cubic", use_fused_matvec=True,
-                   device=dev)
+        solve()
         torch.cuda.synchronize()
     profiled_wall = time.perf_counter() - t0
     groups, top = {}, []
@@ -177,11 +226,33 @@ def profile_solve(pair, dev, unprofiled_wall_s: float) -> None:
         top.append((us / 1e3, ev.count, ev.key[:90]))
     device_ms = sum(groups.values())
     top.sort(reverse=True)
-    emit("profile", device_ms=device_ms, profiled_wall_s=profiled_wall,
+    emit("profile", path=label, device_ms=device_ms, profiled_wall_s=profiled_wall,
          unprofiled_wall_s=unprofiled_wall_s,
          idle_share=1.0 - device_ms / 1e3 / unprofiled_wall_s if device_ms else None,
          groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
          top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in top[:12]])
+
+
+def grid_sample_linear(coef, q, pad: int):
+    """The library yardstick of K4 linear (timed only; the port never calls
+    it): circular padding by ``pad``, then trilinear ``grid_sample`` with
+    ``align_corners=True`` at ``q`` mapped to the padded frame. Returns the
+    call; its grid is computed once, here, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    sizes = [n + 2 * pad for n in coef.shape[-3:]]
+    # grid_sample's last grid axis orders (W, H, D): axes 2, 1, 0 of q.
+    grid = torch.stack([2.0 * (q[a] + pad) / (sizes[a] - 1) - 1.0 for a in (2, 1, 0)],
+                       dim=-1)[None].contiguous()
+    x = coef.reshape((1, -1) + tuple(coef.shape[-3:]))
+
+    def call():
+        xp = F.pad(x, (pad,) * 6, mode="circular")
+        return F.grid_sample(xp, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)[0]
+
+    return call
 
 
 def main(argv=None) -> int:
@@ -200,6 +271,7 @@ def main(argv=None) -> int:
     from repro_torch.core import gradient as GR
     from repro_torch.core import hessian as HS
     from repro_torch.core import interp as I
+    from repro_torch.core import metrics as M
     from repro_torch.core import registration as R
     from repro_torch.core import semilag as SL
     from repro_torch.data import synthetic as S
@@ -212,6 +284,7 @@ def main(argv=None) -> int:
     dev = D.resolve("cuda")
     n = args.size
     shape = (n, n, n)
+    bf16 = torch.bfloat16
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -259,28 +332,38 @@ def main(argv=None) -> int:
 
     v_smooth = S.random_velocity(gen, shape, amplitude=0.6, device=dev)
     foot = SL.trace_characteristic(v_smooth, 0.25, "cubic_bspline", 1.0)
-    plan = I.build_plan(foot, "cubic_bspline")
+    queries = {"foot": foot, "foot-3": (foot - 3.0).contiguous()}
+    plans = {"": I.build_plan(foot, "cubic_bspline"),
+             ":bf16": I.build_plan(foot, "cubic_bspline", bf16)}
 
-    def plan_check(label, got, ref):
+    def plan_check(key, label, got, ref):
         err = max_err(got, ref)
         tol = PLAN_REL * max(float(ref.abs().max()), 1.0)
         checks.append(dict(case=label, max_abs_err=err, tol=tol, ok=err <= tol))
-        return err
+        errs[key] = max(errs.get(key, 0.0), err)
 
     coef1 = PF.prefilter3d(f)
-    coef3 = PF.prefilter3d(stack3)
-    errs["apply_plan"] = max(
-        plan_check("apply_plan K=1", K.apply_plan(coef1, plan),
-                   K.apply_plan_plain(coef1, plan)),
-        plan_check("apply_plan K=3", K.apply_plan(coef3, plan),
-                   K.apply_plan_plain(coef3, plan)))
     coef2 = PF.prefilter3d(stack2)
+    coef3 = PF.prefilter3d(stack3)
     extra = stack3[0]
-    for epi in ("inc_state", "inc_adjoint"):
-        errs["apply_plan_fused:" + epi] = plan_check(
-            "apply_plan_fused " + epi,
-            K.apply_plan_fused(coef2, plan, extra, epi, 0.25),
-            K.apply_plan_fused_plain(coef2, plan, extra, epi, 0.25))
+    for sfx, plan in plans.items():
+        for coef in (coef1, coef3):
+            k = 1 if coef.dim() == 3 else coef.shape[0]
+            plan_check("apply_plan" + sfx, f"apply_plan{sfx} K={k}",
+                       K.apply_plan(coef, plan), K.apply_plan_plain(coef, plan))
+        for epi in ("inc_state", "inc_adjoint"):
+            plan_check(f"apply_plan_fused:{epi}{sfx}", f"apply_plan_fused {epi}{sfx}",
+                       K.apply_plan_fused(coef2, plan, extra, epi, 0.25),
+                       K.apply_plan_fused_plain(coef2, plan, extra, epi, 0.25))
+    for basis in K4_BASES:
+        for sfx, wd in (("", None), (":bf16", bf16)):
+            for coef in (coef1, coef2):
+                k = 1 if coef.dim() == 3 else coef.shape[0]
+                for qname, q in queries.items():
+                    plan_check(f"interp3d:{basis}{sfx}",
+                               f"interp3d {basis}{sfx} K={k} at {qname}",
+                               K.interp3d(coef, q, basis, wd),
+                               K.interp3d_plain(coef, q, basis, wd))
     torch.cuda.synchronize()
     ok3 = all(c["ok"] for c in checks)
     emit("kernels", size=n, ok=ok3, checks=checks,
@@ -288,19 +371,24 @@ def main(argv=None) -> int:
     if not ok3:
         return 1
 
-    # 4. reference: 16^3 solve on the card vs the plain versions on the CPU
+    # 4. reference: 16^3 solves on the card vs the plain versions on the CPU
     small = S.make_pair(args.seed, (16, 16, 16), device="cpu")
-    ref = R.register(small.m0, small.m1, device="cpu")
-    got = R.register(small.m0, small.m1, use_fused_matvec=True, device=dev)
-    dv = max_err(got.v.cpu(), ref.v)
-    vmax = float(ref.v.abs().max())
-    pcg_ref = [h["pcg_iters"] for h in ref.history]
-    pcg_got = [h["pcg_iters"] for h in got.history]
-    ok4 = (got.iters == ref.iters and pcg_got == pcg_ref
-           and got.converged == ref.converged and dv <= REF_V_REL * vmax)
-    emit("reference", ok=ok4, iters=[got.iters, ref.iters], pcg=[pcg_got, pcg_ref],
-         max_abs_dv=dv, tol=REF_V_REL * vmax,
-         mismatch_rel=[got.mismatch_rel, ref.mismatch_rel])
+    refs = []
+    for kw in (dict(use_fused_matvec=True), dict(use_plan=False)):
+        ref = R.register(small.m0, small.m1, device="cpu",
+                         use_plan=kw.get("use_plan", True))
+        got = R.register(small.m0, small.m1, device=dev, **kw)
+        dv = max_err(got.v.cpu(), ref.v)
+        vmax = float(ref.v.abs().max())
+        pcg_ref = [h["pcg_iters"] for h in ref.history]
+        pcg_got = [h["pcg_iters"] for h in got.history]
+        refs.append(dict(
+            card=kw, ok=(got.iters == ref.iters and pcg_got == pcg_ref
+                         and got.converged == ref.converged and dv <= REF_V_REL * vmax),
+            iters=[got.iters, ref.iters], pcg=[pcg_got, pcg_ref], max_abs_dv=dv,
+            tol=REF_V_REL * vmax, mismatch_rel=[got.mismatch_rel, ref.mismatch_rel]))
+    ok4 = all(r["ok"] for r in refs)
+    emit("reference", ok=ok4, runs=refs)
     if not ok4:
         return 1
 
@@ -323,33 +411,98 @@ def main(argv=None) -> int:
         return 1
     del gs, hv_plan, hv_fused, v, vt
 
-    # 6. solve: the main path, with every count set to 0 just before it
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counts.reset()
-    t0 = time.perf_counter()
-    res = R.register(pair.m0, pair.m1, variant="fd8-cubic",
-                     use_fused_matvec=True, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counts.snapshot()
-    plain_runs = {k: c for k, c in launches.items() if k.startswith("plain:")}
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    ok6 = (not missing and not plain_runs and math.isfinite(res.mismatch_rel)
-           and res.detF["min"] > 0 and bool(torch.isfinite(res.v).all())
-           and tuple(res.v.shape) == (3,) + shape)
-    emit("solve", ok=ok6, size=n, variant="fd8-cubic", use_fused_matvec=True,
-         iters=res.iters, pcg_per_step=[h["pcg_iters"] for h in res.history],
-         ls_evals=[h["ls_evals"] for h in res.history], matvecs=res.matvecs,
-         mismatch_rel=res.mismatch_rel, detF=res.detF, converged=res.converged,
-         rel_grad=res.rel_grad, solver_wall_s=res.wall_time_s,
-         register_wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, missing=missing, plain_runs=plain_runs)
-    if not ok6:
-        return 1
-    del res
+    # 6-11. the paths, each with every count set to 0 just before it
+    path_launches = {}
 
-    # 7. times at the main-path shapes
+    def drive(label, required, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The script's own tensors (inputs, plans of the kernels phase) are
+        # live throughout: the path's peak above them is the difference.
+        before = torch.cuda.memory_allocated()
+        counts.reset()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.snapshot()
+        path_launches[label] = launches
+        fields = dict(wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                      memory_allocated_before=before, launches=launches,
+                      missing=[k for k in required if launches.get(k, 0) == 0],
+                      plain_runs={k: c for k, c in launches.items()
+                                  if k.startswith("plain:")})
+        return out, fields
+
+    def solved(res):
+        return (math.isfinite(res.mismatch_rel) and res.detF["min"] > 0
+                and bool(torch.isfinite(res.v).all())
+                and tuple(res.v.shape) == (3,) + shape)
+
+    def solve_fields(res):
+        return dict(iters=res.iters, pcg_per_step=[h["pcg_iters"] for h in res.history],
+                    ls_evals=[h["ls_evals"] for h in res.history], matvecs=res.matvecs,
+                    mismatch_rel=res.mismatch_rel, detF=res.detF,
+                    converged=res.converged, rel_grad=res.rel_grad,
+                    solver_wall_s=res.wall_time_s)
+
+    walls = {}
+    for label, (kw, required) in PATHS.items():
+        res, fields = drive(label, required,
+                            lambda kw=kw: R.register(pair.m0, pair.m1, device=dev, **kw))
+        ok = solved(res) and not fields["missing"] and not fields["plain_runs"]
+        walls[label] = fields.pop("wall_s")
+        emit(label, ok=ok, size=n, **kw, **solve_fields(res),
+             register_wall_s=walls[label], **fields)
+        if not ok:
+            return 1
+        if label == "solve_planfree":
+            cfg_pf = R.make_transport_config(**kw)
+            warped, lf = drive("warp_labels", ["interp3d:linear"],
+                               lambda v_=res.v: M.warp_labels(pair.labels0, v_, cfg_pf))
+            d = float(M.dice(warped, pair.labels1))
+            d0 = float(M.dice(pair.labels0, pair.labels1))
+            ok = (math.isfinite(d) and not lf["missing"] and not lf["plain_runs"]
+                  and tuple(warped.shape) == shape)
+            emit("warp_labels", ok=ok, dice=d, dice_unregistered=d0, **lf)
+            if not ok:
+                return 1
+        del res
+
+    mres, fields = drive("multires", _K1_KEYS + ["apply_plan"] + _FUSED,
+                         lambda: R.register_multires(pair.m0, pair.m1, variant="fd8-cubic",
+                                                     n_levels=3, use_fused_matvec=True,
+                                                     device=dev))
+    ok = solved(mres) and not fields["missing"] and not fields["plain_runs"]
+    wall = fields.pop("wall_s")
+    emit("multires", ok=ok, size=n, levels=mres.levels,
+         level_iters=[lr.iters for lr in mres.level_results],
+         level_matvecs=[lr.matvecs for lr in mres.level_results],
+         level_wall_s=[lr.wall_time_s for lr in mres.level_results],
+         level_converged=[lr.converged for lr in mres.level_results],
+         iters=mres.iters, fine_iters=mres.fine_iters, matvecs=mres.matvecs,
+         mismatch_rel=mres.mismatch_rel, detF=mres.detF, converged=mres.converged,
+         solver_wall_s=mres.wall_time_s, register_wall_s=wall, **fields)
+    if not ok:
+        return 1
+    del mres
+
+    for label, (kw, required) in VARIANT_PATHS.items():
+        res, fields = drive(label, required,
+                            lambda kw=kw: R.register(pair.m0, pair.m1, max_newton=2,
+                                                     device=dev, **kw))
+        ok = solved(res) and not fields["missing"] and not fields["plain_runs"]
+        wall = fields.pop("wall_s")
+        emit(label, ok=ok, size=n, max_newton=2, **kw, **solve_fields(res),
+             register_wall_s=wall, **fields)
+        if not ok:
+            return 1
+        del res
+
+    def path_count(key):
+        return sum(snap.get(key, 0) for snap in path_launches.values())
+
+    # 12. times at the main-path shapes
     reps, plain_reps = TIMING_REPS, PLAIN_REPS
     rows = {}
     fd8_scale = 1.0 / (2 * math.pi / n)
@@ -385,33 +538,65 @@ def main(argv=None) -> int:
         shape=list(stack2.shape), per_axis_ms=pf_ms)
 
     m = f.numel()
-    rows["apply_plan"] = dict(
-        ms=timed(lambda: K.apply_plan(coef1, plan), reps),
-        plain_ms=timed(lambda: K.apply_plan_plain(coef1, plan), plain_reps),
-        library_ms=None,
-        bound=bound_ms(plan_bytes(plan) + 2 * nbytes(coef1), m * (16 + 192)),
-        shape=list(coef1.shape),
-        k3_ms=timed(lambda: K.apply_plan(coef3, plan), reps))
-    for epi, epi_ops in (("inc_state", 3), ("inc_adjoint", 6)):
-        rows["apply_plan_fused:" + epi] = dict(
-            ms=timed(lambda e=epi: K.apply_plan_fused(coef2, plan, extra, e, 0.25), reps),
-            plain_ms=timed(lambda e=epi: K.apply_plan_fused_plain(coef2, plan, extra,
-                                                                  e, 0.25), plain_reps),
+    for sfx, plan in plans.items():
+        rows["apply_plan" + sfx] = dict(
+            ms=timed(lambda p=plan: K.apply_plan(coef1, p), reps),
+            plain_ms=timed(lambda p=plan: K.apply_plan_plain(coef1, p), plain_reps),
             library_ms=None,
-            bound=bound_ms(plan_bytes(plan) + nbytes(coef2, extra) + 4 * m,
-                           m * (16 + 2 * 192 + epi_ops)),
-            shape=list(coef2.shape))
+            bound=bound_ms(plan_bytes(plan) + 2 * nbytes(coef1), m * TAP_OPS[4]),
+            shape=list(coef1.shape),
+            k3_ms=timed(lambda p=plan: K.apply_plan(coef3, p), reps))
+        for epi, epi_ops in (("inc_state", 3), ("inc_adjoint", 6)):
+            rows[f"apply_plan_fused:{epi}{sfx}"] = dict(
+                ms=timed(lambda e=epi, p=plan: K.apply_plan_fused(coef2, p, extra, e, 0.25),
+                         reps),
+                plain_ms=timed(lambda e=epi, p=plan: K.apply_plan_fused_plain(
+                    coef2, p, extra, e, 0.25), plain_reps),
+                library_ms=None,
+                bound=bound_ms(plan_bytes(plan) + nbytes(coef2, extra) + 4 * m,
+                               m * (2 * TAP_OPS[4] + epi_ops)),
+                shape=list(coef2.shape))
+    pad = SL.DISPLACEMENT_BOUND + 1
+    for basis in K4_BASES:
+        support = K.BASES[basis].support
+        lib_call = {}
+        if basis == "linear":
+            # grid_sample: the same trilinear function at the same points
+            for coef in (coef1, coef2):
+                call = grid_sample_linear(coef, foot, pad)
+                dev_lib = max_err(call().reshape(coef.shape), K.interp3d(coef, foot, basis))
+                lib_call[coef.dim()] = (call, dev_lib)
+        for sfx, wd in (("", None), (":bf16", bf16)):
+            row = {}
+            for coef in (coef1, coef2):
+                kf = 1 if coef.dim() == 3 else coef.shape[0]
+                lib = lib_call.get(coef.dim())
+                row[kf] = dict(
+                    ms=timed(lambda c=coef: K.interp3d(c, foot, basis, wd), reps),
+                    plain_ms=timed(lambda c=coef: K.interp3d_plain(c, foot, basis, wd),
+                                   plain_reps),
+                    library_ms=timed(lib[0], reps) if lib else None,
+                    library_max_abs_dev=lib[1] if lib else None,
+                    bound=bound_ms(nbytes(foot) + 2 * nbytes(coef),
+                                   m * (K4_WEIGHT_OPS[basis] + kf * TAP_OPS[support])))
+            rows[f"interp3d:{basis}{sfx}"] = dict(row[1], shape=list(coef1.shape),
+                                                  k2=row[2])
+    for key, row in rows.items():
+        row["launches_on_paths"] = path_count(key)
     emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows)
 
-    # 8. profile: device time by kernel group, and the idle share
-    profile_solve(pair, dev, wall)
+    # 13. profile: device time by kernel group, and the idle share
+    for label in ("solve", "solve_planfree"):
+        kw = PATHS[label][0]
+        profile_solve(label, lambda kw=kw: R.register(pair.m0, pair.m1, device=dev, **kw),
+                      walls[label])
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
         row = rows[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=launches.get(kname, 0), max_abs_err=errs[kname],
+            launches=path_count(kname), max_abs_err=errs[kname],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
             bound_by=row["bound"][1], library_ms=row["library_ms"]))
     print(smi_line)

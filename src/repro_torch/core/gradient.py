@@ -17,7 +17,8 @@ from . import transport as _tr
 class GradientState:
     """Everything computed while evaluating g(v) that later stages reuse:
     the per-Newton-step invariants (plans, trajectory gradients, div v)
-    consumed by every PCG Hessian matvec at this iterate."""
+    consumed by every PCG Hessian matvec at this iterate (plans and
+    trajectory gradients are None when ``cfg.use_plan`` is off)."""
 
     g: torch.Tensor            # reduced gradient (3, N1,N2,N3)
     m_traj: torch.Tensor       # state trajectory (nt+1, N1,N2,N3)
@@ -48,7 +49,7 @@ def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
     lam_traj = _tr.solve_adjoint(lam1, v, cfg, foot_adj=foot_adj, divv=divv,
                                  plan_adj=plan_adj)
 
-    grad_m_traj = _tr.grad_traj(m_traj, cfg)
+    grad_m_traj = _tr.grad_traj(m_traj, cfg) if cfg.use_plan else None
     body = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj)
     g = _spec.apply_regop(v, beta, gamma) + body
 

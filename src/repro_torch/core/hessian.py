@@ -5,7 +5,9 @@
 with the incremental state  d mt/dt + v.grad mt + vt.grad m = 0, mt(0) = 0,
 and the incremental adjoint  -d lt/dt - div(lt v) = 0, lt(1) = -H_D mt(1).
 
-The matvec reuses the per-Newton-step invariants of ``GradientState``. With
+The matvec reuses the per-Newton-step invariants of ``GradientState``;
+without plans (``use_plan=False``) the transports interpolate at the stored
+footpoints (K4) and recompute the trajectory gradients. With
 ``cfg.use_fused_matvec`` the two transports run through kernel K3
 (``kernels.interp3d.apply_plan_fused``): each step gathers the stacked
 [field, source] coefficients through the plan and applies the RK2 update in

@@ -1,14 +1,16 @@
-"""Interpolation on periodic 3D grids through prebuilt plans (port of
+"""Scattered-data interpolation on periodic 3D grids (port of
 ``repro.core.interp``).
 
 Methods (the paper's kernel family): ``linear`` (8 taps), ``cubic_lagrange``
 (64 taps on the field), ``cubic_bspline`` (64 taps on coefficients from the
 15-point FIR prefilter). Query points ``q`` are ``(3, *out_shape)`` in index
-units; periodic wrap is baked into the plan.
+units, with periodic wrap.
 
-Only the plan path is ported: ``build_plan`` once per footpoint set, then
-``apply_plan`` (kernel K2 on the card, its plain version on the CPU). The
-plan-free ``interp_field`` family is queued with its kernel (ROADMAP B4).
+Two paths: plan-free ``interp_field`` (kernel K4 on the card), and plans,
+``build_plan`` once per footpoint set then ``apply_plan`` (kernel K2). Each
+kernel takes its plain version on the CPU. ``weight_dtype`` (None or
+``torch.bfloat16``) is the mixed-precision scheme of the paper: only the
+basis weights are downcast, the field keeps its dtype, accumulation is fp32.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import interp3d as _k
@@ -42,6 +45,22 @@ def prefilter_fir(f: torch.Tensor) -> torch.Tensor:
     return _pf.prefilter3d(f)
 
 
+def prefilter_fft(f: torch.Tensor) -> torch.Tensor:
+    """Exact periodic prefilter (spectral division by the B-spline symbol)
+    over the trailing three axes; the oracle of the truncated FIR."""
+    shape = tuple(f.shape[-3:])
+    sym = []
+    for n in shape:
+        k = np.fft.fftfreq(n, d=1.0 / n)
+        sym.append((4.0 + 2.0 * np.cos(2.0 * np.pi * k / n)) / 6.0)
+    s1 = torch.tensor(sym[0], dtype=torch.float32, device=f.device).reshape(-1, 1, 1)
+    s2 = torch.tensor(sym[1], dtype=torch.float32, device=f.device).reshape(1, -1, 1)
+    s3 = torch.tensor(sym[2][: shape[2] // 2 + 1], dtype=torch.float32,
+                      device=f.device).reshape(1, 1, -1)
+    fh = torch.fft.rfftn(f, dim=(-3, -2, -1))
+    return torch.fft.irfftn(fh / (s1 * s2 * s3), s=shape, dim=(-3, -2, -1)).to(f.dtype)
+
+
 def prefilter_for(f: torch.Tensor, method: str) -> torch.Tensor:
     """Interpolation coefficients for ``method`` (identity unless B-spline)."""
     if method == "cubic_bspline":
@@ -50,42 +69,49 @@ def prefilter_for(f: torch.Tensor, method: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Basis weights
+# Basis weights (beside their kernels in ``repro_torch.kernels.interp3d``)
+# ---------------------------------------------------------------------------
+
+lagrange_weights = _k.lagrange_weights
+bspline_weights = _k.bspline_weights
+linear_weights = _k.linear_weights
+
+METHODS = ("linear", "cubic_lagrange", "cubic_bspline")
+
+
+# ---------------------------------------------------------------------------
+# Plan-free evaluation: kernel K4 on the card, its plain version on the CPU.
 # ---------------------------------------------------------------------------
 
 
-def lagrange_weights(t: torch.Tensor):
-    """Cubic Lagrange basis at nodes {-1, 0, 1, 2} evaluated at t in [0,1)."""
-    w0 = -t * (t - 1.0) * (t - 2.0) / 6.0
-    w1 = (t + 1.0) * (t - 1.0) * (t - 2.0) / 2.0
-    w2 = -(t + 1.0) * t * (t - 2.0) / 2.0
-    w3 = (t + 1.0) * t * (t - 1.0) / 6.0
-    return (w0, w1, w2, w3)
+def interp_linear(f: torch.Tensor, q: torch.Tensor, weight_dtype=None) -> torch.Tensor:
+    return _k.interp3d(f, q, "linear", weight_dtype)
 
 
-def bspline_weights(t: torch.Tensor):
-    """Uniform cubic B-spline basis at offsets {-1, 0, 1, 2} for t in [0,1)."""
-    t2 = t * t
-    t3 = t2 * t
-    w0 = (1.0 - 3.0 * t + 3.0 * t2 - t3) / 6.0
-    w1 = (4.0 - 6.0 * t2 + 3.0 * t3) / 6.0
-    w2 = (1.0 + 3.0 * t + 3.0 * t2 - 3.0 * t3) / 6.0
-    w3 = t3 / 6.0
-    return (w0, w1, w2, w3)
+def interp_cubic_lagrange(f: torch.Tensor, q: torch.Tensor,
+                          weight_dtype=None) -> torch.Tensor:
+    return _k.interp3d(f, q, "cubic_lagrange", weight_dtype)
 
 
-def linear_weights(t: torch.Tensor):
-    return (1.0 - t, t)
+def interp_cubic_bspline(f: torch.Tensor, q: torch.Tensor, prefiltered: bool = False,
+                         weight_dtype=None, prefilter: str = "fir") -> torch.Tensor:
+    if not prefiltered:
+        f = prefilter_fir(f) if prefilter == "fir" else prefilter_fft(f)
+    return _k.interp3d(f, q, "cubic_bspline", weight_dtype)
 
 
-#: method -> (weight_fn, taps per axis, base index offset from floor(q))
-_METHOD_TABLE = {
-    "linear": (linear_weights, 2, 0),
-    "cubic_lagrange": (lagrange_weights, 4, -1),
-    "cubic_bspline": (bspline_weights, 4, -1),
-}
-
-METHODS = ("linear", "cubic_lagrange", "cubic_bspline")
+def interp_field(f: torch.Tensor, q: torch.Tensor, method: str = "cubic_bspline",
+                 prefiltered: bool = False, weight_dtype=None) -> torch.Tensor:
+    """Interpolate ``f`` ``(..., N1, N2, N3)`` at index-unit query points
+    ``q`` ``(3, *out_shape)``; ``prefiltered`` marks B-spline coefficients.
+    ``weight_dtype`` (None or ``torch.bfloat16``) rounds the weights only."""
+    if method == "linear":
+        return interp_linear(f, q, weight_dtype)
+    if method == "cubic_lagrange":
+        return interp_cubic_lagrange(f, q, weight_dtype)
+    if method == "cubic_bspline":
+        return interp_cubic_bspline(f, q, prefiltered, weight_dtype)
+    raise ValueError(f"unknown interpolation method: {method}")
 
 
 # ---------------------------------------------------------------------------
@@ -110,24 +136,24 @@ class InterpPlan:
 
     @property
     def support(self) -> int:
-        return _METHOD_TABLE[self.method][1]
+        return _k.BASES[self.method].support
 
     @property
     def out_shape(self):
         return tuple(self.idx[0].shape[1:])
 
 
-def build_plan(q: torch.Tensor, method: str = "cubic_bspline",
+def build_plan(q: torch.Tensor, method: str = "cubic_bspline", weight_dtype=None,
                shape=None) -> InterpPlan:
     """Build an :class:`InterpPlan` for query points ``q`` (index units).
 
     ``shape`` is the source-field shape (default ``q.shape[1:]``). Indices
-    wrap periodically with floor-mod; weights are fp32 (the JAX package's
-    ``weight_dtype`` downcast is ROADMAP A11).
+    wrap periodically with floor-mod. ``weight_dtype`` downcasts the weights
+    only (fp32 when None).
     """
-    if method not in _METHOD_TABLE:
+    if method not in METHODS:
         raise ValueError(f"unknown interpolation method: {method}")
-    weight_fn, support, base_offset = _METHOD_TABLE[method]
+    support, base_offset = _k.BASES[method].support, _k.BASES[method].offset
     shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
     n1, n2, n3 = shape
     qf = torch.floor(q)
@@ -143,7 +169,8 @@ def build_plan(q: torch.Tensor, method: str = "cubic_bspline",
     idx1 = _tap_idx(base[0], n1) * (n2 * n3)
     idx2 = _tap_idx(base[1], n2) * n3
     idx3 = _tap_idx(base[2], n3)
-    w = tuple(torch.stack(weight_fn(t[a]), dim=0) for a in range(3))
+    w = tuple(torch.stack(_k.plan_weights(method, t[a], weight_dtype), dim=0)
+              for a in range(3))
     return InterpPlan((idx1, idx2, idx3), w, method, shape)
 
 
@@ -155,9 +182,9 @@ def apply_plan(plan: InterpPlan, coef: torch.Tensor) -> torch.Tensor:
 
 
 def interp_vector(w: torch.Tensor, q: torch.Tensor, method: str = "cubic_bspline",
-                  prefiltered: bool = False) -> torch.Tensor:
+                  prefiltered: bool = False, weight_dtype=None) -> torch.Tensor:
     """Interpolate a vector field through one shared plan; output
     ``(3, *q.shape[1:])``."""
     coef = w if prefiltered else prefilter_for(w, method)
-    plan = build_plan(q, method=method, shape=w.shape[-3:])
+    plan = build_plan(q, method=method, weight_dtype=weight_dtype, shape=w.shape[-3:])
     return apply_plan(plan, coef)

@@ -26,9 +26,11 @@ def deformation_displacement(v: torch.Tensor, cfg: _tr.TransportConfig) -> torch
                      device=v.device).reshape(3, 1, 1, 1)
     x_idx = _grid.index_coords(shape, dtype=v.dtype, device=v.device)
     step_disp = (foot - x_idx) * h
-    # The JAX version rebuilds the same plan inside every step of its scan;
-    # the footpoints do not change, so it is built once here.
-    plan = _interp.build_plan(foot, method=cfg.interp, shape=shape)
+    # The JAX version rebuilds the same plan inside every step of its scan
+    # (whatever ``use_plan`` says); the footpoints do not change, so it is
+    # built once here.
+    plan = _interp.build_plan(foot, method=cfg.interp, weight_dtype=cfg.weight_dtype,
+                              shape=shape)
     u = torch.zeros_like(v)
     for _ in range(cfg.nt):
         u_coef = _interp.prefilter_for(u, cfg.interp)
@@ -57,6 +59,19 @@ def detF_stats(v: torch.Tensor, cfg: _tr.TransportConfig) -> Dict[str, torch.Ten
 def warp_image(m0: torch.Tensor, v: torch.Tensor, cfg: _tr.TransportConfig) -> torch.Tensor:
     """m(x,1) = m0(y(x)) via the SL state solve."""
     return _tr.solve_state(m0, v, cfg)[-1]
+
+
+def warp_labels(labels: torch.Tensor, v: torch.Tensor,
+                cfg: _tr.TransportConfig) -> torch.Tensor:
+    """Warp a binary label mask: trilinear plan-free interpolation (K4, fp32
+    weights) at y(x) = x + u(x), then a 0.5 threshold."""
+    u = deformation_displacement(v, cfg)
+    shape = tuple(labels.shape)
+    h = torch.tensor(_grid.spacing(shape), dtype=u.dtype,
+                     device=u.device).reshape(3, 1, 1, 1)
+    q = _grid.index_coords(shape, dtype=u.dtype, device=u.device) + u / h
+    warped = _interp.interp_linear(labels.to(torch.float32), q)
+    return (warped >= 0.5).to(labels.dtype)
 
 
 def dice(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

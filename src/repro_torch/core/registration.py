@@ -1,4 +1,4 @@
-"""Public registration API: ``register(m0, m1, ...)`` (port of
+"""Public registration API: ``register`` and ``register_multires`` (port of
 ``repro.core.registration``, single pair).
 
 Variant tags follow the paper's Table 6:
@@ -8,17 +8,18 @@ Variant tags follow the paper's Table 6:
     fd8-lagrange : FD8 first derivatives + cubic Lagrange interpolation
     fd8-linear   : FD8 first derivatives + trilinear interpolation
 
-The JAX ``backend=`` argument becomes ``device=``: the entry point runs on
-the card unless the caller passes ``device="cpu"``, and raises when the card
-is asked for and absent. Not ported yet, and raising ``NotImplementedError``:
-bf16 weights (``mixed_precision``, ROADMAP A11), ``use_plan=False`` (B4),
-NCC/NGF (A12), multires (A13), batches (A14) and slab meshes (A18).
+The JAX ``backend=`` argument becomes ``device=``: the entry points run on
+the card unless the caller passes ``device="cpu"``, and raise when the card
+is asked for and absent. ``mixed_precision`` (bf16 interpolation weights)
+and ``use_plan=False`` (plan-free interpolation, kernel K4) run. Not ported
+yet, and raising ``NotImplementedError``: NCC/NGF (ROADMAP A12), batches
+(A14) and slab meshes (A18).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +27,7 @@ from .. import device as _device
 from . import gauss_newton as _gn
 from . import measures as _meas
 from . import metrics as _metrics
+from . import multires as _mr
 from . import objective as _obj
 from . import transport as _tr
 
@@ -71,14 +73,9 @@ def make_transport_config(variant: str = "fd8-cubic", nt: int = 4,
     if use_fused_matvec and not use_plan:
         raise ValueError("use_fused_matvec requires use_plan=True (the fused "
                          "kernel consumes prebuilt interpolation plans)")
-    if not use_plan:
-        raise NotImplementedError("use_plan=False is not ported yet (ROADMAP B4)")
-    if mixed_precision:
-        raise NotImplementedError(
-            "bf16 interpolation weights (mixed_precision) are not ported yet "
-            "(ROADMAP A11)")
     sel = VARIANTS[variant]
     return _tr.TransportConfig(interp=sel["interp"], deriv=sel["deriv"], nt=nt,
+                               weight_dtype=torch.bfloat16 if mixed_precision else None,
                                use_plan=use_plan, measure=measure,
                                use_fused_matvec=use_fused_matvec)
 
@@ -131,6 +128,96 @@ def register(
         rel_grad=res.rel_grad,
         converged=res.converged,
         wall_time_s=res.wall_time_s,
+        history=res.history,
+    )
+
+
+@dataclasses.dataclass
+class MultiresRegistrationResult:
+    v: torch.Tensor
+    m_warped: torch.Tensor
+    mismatch_rel: float
+    detF: Dict[str, float]
+    iters: int                      # Newton iterations summed over all levels
+    fine_iters: int                 # Newton iterations on the finest grid only
+    matvecs: int
+    rel_grad: float
+    converged: bool
+    wall_time_s: float
+    levels: List[Tuple[int, int, int]]
+    level_results: list             # multires.LevelResult per level
+    history: list
+
+
+def register_multires(
+    m0,
+    m1,
+    variant: str = "fd8-cubic",
+    beta: float = 5e-4,
+    gamma: float = 1e-4,
+    nt: int = 4,
+    tol_rel_grad: float = 5e-2,
+    max_newton: int = 50,
+    continuation: bool = False,
+    levels: Optional[Sequence[Tuple[int, int, int]]] = None,
+    n_levels: Optional[int] = None,
+    min_size: int = 8,
+    coarse_tol: Optional[float] = None,
+    level_newton: Optional[Sequence[int]] = None,
+    coarse_variant: Optional[str] = None,
+    presmooth_sigma: float = 0.0,
+    mixed_precision: bool = False,
+    use_plan: bool = True,
+    measure: object = "ssd",
+    use_fused_matvec: bool = False,
+    v0=None,
+    gnorm_ref: Optional[float] = None,
+    verbose: bool = False,
+    device="cuda",
+) -> MultiresRegistrationResult:
+    """Coarse-to-fine registration (CLAIRE grid continuation).
+
+    The pyramid is ``levels`` (coarsest first) or a halving schedule; each
+    level warm-starts from the spectrally prolonged coarse velocity.
+    ``coarse_variant`` selects a cheaper variant on all but the finest level.
+    Inputs are moved to ``device`` as float32, as in :func:`register`.
+    """
+    dev = _device.resolve(device)
+    cfg_kw = dict(nt=nt, mixed_precision=mixed_precision, use_plan=use_plan,
+                  measure=measure, use_fused_matvec=use_fused_matvec)
+    cfg = make_transport_config(variant, **cfg_kw)
+    m0 = _device.as_tensor(m0, dev)
+    m1 = _device.as_tensor(m1, dev)
+    if v0 is not None:
+        v0 = _device.as_tensor(v0, dev)
+    gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
+                          max_newton=max_newton,
+                          continuation=continuation)  # coarsest level only
+    if levels is None:
+        levels = _mr.default_level_shapes(m0.shape, n_levels=n_levels,
+                                          min_size=min_size)
+    level_cfgs = None
+    if coarse_variant is not None:
+        coarse_cfg = make_transport_config(coarse_variant, **cfg_kw)
+        level_cfgs = [coarse_cfg] * (len(levels) - 1) + [cfg]
+    res = _mr.solve_multires(m0, m1, cfg, gn_cfg, levels=levels, coarse_tol=coarse_tol,
+                             level_newton=level_newton, level_cfgs=level_cfgs,
+                             presmooth_sigma=presmooth_sigma, v0=v0,
+                             gnorm_ref=gnorm_ref, verbose=verbose)
+    m_warped, mis, detf = _score_single(m0, m1, res.v, cfg)
+    return MultiresRegistrationResult(
+        v=res.v,
+        m_warped=m_warped,
+        mismatch_rel=mis,
+        detF=detf,
+        iters=res.iters,
+        fine_iters=res.fine_iters,
+        matvecs=res.matvecs,
+        rel_grad=res.rel_grad,
+        converged=res.converged,
+        wall_time_s=res.wall_time_s,
+        levels=list(res.levels),
+        level_results=list(res.level_results),
         history=res.history,
     )
 

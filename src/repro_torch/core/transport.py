@@ -1,10 +1,10 @@
 """Transport solves: state, adjoint, incremental state, incremental adjoint
-(port of ``repro.core.transport``, plan path).
+(port of ``repro.core.transport``).
 
 All four PDEs are solved with the semi-Lagrangian scheme of ``semilag``. The
-velocity is stationary, so each solve's footpoints and interpolation plan are
-built once and reused for all ``nt`` steps. ``lax.scan`` becomes a Python
-loop over the steps.
+velocity is stationary, so each solve's footpoints (and, with ``use_plan``,
+its interpolation plan) are built once and reused for all ``nt`` steps.
+``lax.scan`` becomes a Python loop over the steps.
 
 Shapes: scalar fields (N1,N2,N3); trajectories (nt+1, N1,N2,N3); velocities
 (3, N1,N2,N3).
@@ -27,20 +27,24 @@ class TransportConfig:
     interp           : "linear" | "cubic_lagrange" | "cubic_bspline"
     deriv            : "fd8" | "fft"
     nt               : number of SL time steps (paper default 4)
-    use_plan         : must be True; the plan-free path is ROADMAP B4
+    weight_dtype     : None (fp32) or torch.bfloat16: mixed-precision
+                       interpolation weights (the data stays fp32)
+    use_plan         : build interpolation plans once per solve / Newton step
+                       (K2/K3); ``False`` interpolates at the footpoints in
+                       every step (K4) and recomputes trajectory gradients
     measure          : distance-measure spec (only "ssd" is ported; NCC/NGF
                        are ROADMAP A12)
     use_fused_matvec : run the PCG Hessian matvec through the fused
-                       gather+epilogue kernel K3
+                       gather+epilogue kernel K3 (requires ``use_plan``)
 
     The JAX config's ``backend`` is dropped (kernels dispatch on the device of
-    their tensors), and so are ``shard`` (the slab path is ROADMAP A18) and
-    ``weight_dtype`` (plan weights are fp32; bf16 weights are ROADMAP A11).
+    their tensors), and so is ``shard`` (the slab path is ROADMAP A18).
     """
 
     interp: str = "cubic_bspline"
     deriv: str = "fd8"
     nt: int = 4
+    weight_dtype: object = None
     use_plan: bool = True
     measure: object = "ssd"
     use_fused_matvec: bool = False
@@ -53,15 +57,15 @@ def _dt(cfg: TransportConfig) -> float:
 def footpoints(v: torch.Tensor, cfg: TransportConfig, sign: float = 1.0) -> torch.Tensor:
     """Characteristic footpoints; sign=+1 for forward solves, -1 for
     backward (adjoint) solves."""
-    return _sl.trace_characteristic(v, _dt(cfg), method=cfg.interp, sign=sign)
+    return _sl.trace_characteristic(v, _dt(cfg), method=cfg.interp, sign=sign,
+                                    weight_dtype=cfg.weight_dtype)
 
 
 def interp_plan(foot: torch.Tensor, cfg: TransportConfig):
-    """Interpolation plan for fixed footpoints."""
+    """Interpolation plan for fixed footpoints (None when plans are off)."""
     if not cfg.use_plan:
-        raise NotImplementedError(
-            "use_plan=False is not ported yet (ROADMAP B4)")
-    return _sl.build_plan(foot, cfg.interp, shape=foot.shape[-3:])
+        return None
+    return _sl.build_plan(foot, cfg.interp, cfg.weight_dtype, shape=foot.shape[-3:])
 
 
 def grad_traj(m_traj: torch.Tensor, cfg: TransportConfig) -> torch.Tensor:
@@ -80,7 +84,7 @@ def solve_state(m0: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
     traj = [m0]
     m = m0
     for _ in range(cfg.nt):
-        m = _sl.sl_step(m, foot, cfg.interp, plan=plan)
+        m = _sl.sl_step(m, foot, cfg.interp, cfg.weight_dtype, plan=plan)
         traj.append(m)
     return torch.stack(traj)
 
@@ -103,7 +107,7 @@ def solve_adjoint(lam1: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
     for _ in range(cfg.nt):
         src0 = divv * lam
         lam = _sl.sl_step_with_source(lam, src0, divv, foot_adj, dt, cfg.interp,
-                                      plan=plan_adj)
+                                      cfg.weight_dtype, plan=plan_adj)
         traj_rev.append(lam)
     # traj_rev[j] = lambda at t_{nt-j}; reorder to forward time.
     return torch.stack(traj_rev[::-1])
@@ -120,12 +124,13 @@ def solve_inc_state(vt: torch.Tensor, v: torch.Tensor, m_traj: torch.Tensor,
         plan = interp_plan(foot, cfg)
     dt = _dt(cfg)
     if grad_m_traj is None:
+        # Plan-free path: the trajectory's gradients are recomputed per call.
         grad_m_traj = grad_traj(m_traj, cfg)
     sources = -torch.sum(vt[None] * grad_m_traj, dim=1)
     mt = torch.zeros_like(m_traj[0])
     for j in range(cfg.nt):
         mt_adv, s0_adv = _sl.sl_step_many(torch.stack([mt, sources[j]]), foot,
-                                          cfg.interp, plan=plan)
+                                          cfg.interp, cfg.weight_dtype, plan=plan)
         mt = mt_adv + 0.5 * dt * (s0_adv + sources[j + 1])
     return mt
 

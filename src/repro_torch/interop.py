@@ -26,15 +26,27 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     return _device.as_tensor(a, _device.resolve(device), dtype=None)
 
 
+def _weights_from_numpy(w, device) -> torch.Tensor:
+    """A weight array as a tensor; bfloat16 arrays (JAX's, typed by
+    ``ml_dtypes``, which torch cannot read) are read as float32, which holds
+    every bf16 value exactly, and cast back to ``torch.bfloat16``."""
+    w = np.asarray(w)
+    if w.dtype.name == "bfloat16":
+        return tensor_from_numpy(np.asarray(w, dtype=np.float32), device).to(
+            torch.bfloat16)
+    return tensor_from_numpy(w, device)
+
+
 def plan_from_numpy(idx, weights, method: str, field_shape,
                     device="cuda") -> _interp.InterpPlan:
     """An :class:`~repro_torch.core.interp.InterpPlan` from per-axis index and
-    weight arrays ``(S, *out_shape)``; indices become int32."""
+    weight arrays ``(S, *out_shape)``; indices become int32, weights keep
+    their dtype (float32 or bfloat16)."""
     if len(idx) != 3 or len(weights) != 3:
         raise ValueError("a plan has three index and three weight arrays")
     idx_t = tuple(tensor_from_numpy(np.asarray(i).astype(np.int32), device)
                   for i in idx)
-    w_t = tuple(tensor_from_numpy(w, device) for w in weights)
+    w_t = tuple(_weights_from_numpy(w, device) for w in weights)
     return _interp.InterpPlan(idx_t, w_t, method, tuple(int(n) for n in field_shape))
 
 

@@ -58,6 +58,11 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     m = np.zeros((8, 8, 8), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         R.register(m, m)
+    for kw in (dict(use_plan=False), dict(mixed_precision=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            R.register(m, m, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.register_multires(m, m)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         S.make_pair(0, (8, 8, 8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -72,21 +77,25 @@ def test_wrappers_refuse_other_devices():
     plan = I.build_plan(q, "cubic_bspline")
     with pytest.raises(ValueError, match="cpu or cuda"):
         K.apply_plan(f, plan)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K.interp3d(f, q, "cubic_lagrange")
 
 
 def test_unported_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="A11"):
-        R.make_transport_config(mixed_precision=True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        R.make_transport_config(use_plan=False)
+    # bf16 weights (A11) and the plan-free path (B4) are ported: they build
+    # configs and run instead of raising.
+    cfg = R.make_transport_config(mixed_precision=True, use_plan=False)
+    assert cfg.weight_dtype == torch.bfloat16 and not cfg.use_plan
+    assert R.make_transport_config().weight_dtype is None
     for name in ("ncc", "ngf"):
         with pytest.raises(NotImplementedError, match="A12"):
             M.resolve(name)
     with pytest.raises(NotImplementedError, match="A18"):
         R.register_sharded(None, None, mesh=None)
     f = torch.zeros((8, 8, 8))
-    with pytest.raises(NotImplementedError, match="B4"):
-        SL.sl_step(f, torch.zeros((3, 8, 8, 8)))
+    q = torch.zeros((3, 8, 8, 8))
+    assert torch.equal(SL.sl_step(f, q), f)
+    assert torch.equal(SL.sl_step(f, q, weight_dtype=torch.bfloat16), f)
     with pytest.raises(ValueError, match="unknown"):
         M.resolve("mutual-information")
     with pytest.raises(ValueError, match="use_fused_matvec requires"):
@@ -103,9 +112,11 @@ def test_cpu_wrappers_take_plain_versions_and_count_them():
     plan = I.build_plan(q, "cubic_bspline")
     K.apply_plan(f, plan)
     K.apply_plan_fused(f, plan, f[0], "inc_adjoint", 0.25)
+    K.interp3d(f, q, "linear")
     snap = counts.snapshot()
     assert snap == {"plain:stencil_axis:fd8": 1, "plain:apply_plan": 1,
-                    "plain:apply_plan_fused:inc_adjoint": 1}
+                    "plain:apply_plan_fused:inc_adjoint": 1,
+                    "plain:interp3d:linear": 1}
     counts.reset()
     assert counts.snapshot() == {}
 
