@@ -10,7 +10,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               parallel, with ptxas' registers and spills per kernel.
 3. kernels  : each kernel against its plain PyTorch version on the same
               inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
-              K=3 stacks; K2 with K=1 and K=3 on a cubic plan from the
+              K=3 stacks; K5 on a (size+8)-row halo-extended field and on a
+              5-field stack of size/4+8 rows, the one-rank and 4-slab
+              shapes; K2 with K=1 and K=3 on a cubic plan from the
               footpoints of a smooth velocity, fp32 and bf16 weights; K3 with
               both epilogues, fp32 and bf16; K4 for each basis, fp32 and bf16
               weights, K=1 and K=2, at those footpoints and at the same
@@ -35,12 +37,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
               variants       plan-free fd8-cubic fp32, fd8-lagrange fp32 and
                              bf16, fd8-linear bf16, two Newton steps each (the
                              other K4 variants)
+              solve_slab     register_sharded on a one-rank NCCL group the
+                             script opens (tcp://127.0.0.1) and closes:
+                             fd8-cubic, fp32, fused matvec, halo 6 (K5, K1,
+                             K2, K3 on halo-extended slabs); the solve's
+                             Newton and PCG counts, v within 1e-4 * max|v|
 12. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one.
-13. profile : the fp32 and the plan-free solve once more under
-              torch.profiler: device time by kernel group and the device's
-              idle share of the unprofiled wall time.
+13. profile : the fp32, the plan-free and the slab solve once more under
+              torch.profiler: device time by kernel group (NCCL included)
+              and the device's idle share of the unprofiled wall time.
 
 Then the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -52,8 +59,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import contextlib
 import math
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -69,9 +78,12 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-4
 PLAN_REL = 1e-5            # K2/K3/K4: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
 MATVEC_REL = 1e-5          # fused vs plan matvec, as tests/test_fused_matvec.py
 REF_V_REL = 1e-4           # 16^3 solve, card vs CPU: max|dv| <= 1e-4 * max|v|
+SLAB_V_REL = 1e-4          # slab vs single-device solve: max|dv| <= 1e-4 * max|v|
+K5_REL = 1e-5              # K5: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
 TIMING_REPS, PLAIN_REPS = 20, 2
 
 _PENCIL = ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:135")
+_K5 = ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:81")
 _K2 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:247")
 _K3 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:339")
 _K4 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:150")
@@ -88,6 +100,7 @@ KERNELS = {
     "apply_plan_fused:inc_state:bf16": _K3,
     "apply_plan_fused:inc_adjoint:bf16": _K3,
     **{f"interp3d:{b}{w}": _K4 for b in K4_BASES for w in ("", ":bf16")},
+    "stencil_valid:fd8": _K5,
 }
 
 _K1_KEYS = ["stencil_axis:fd8", "stencil_axis:prefilter"]
@@ -102,6 +115,9 @@ PATHS = {
                     _K1_KEYS + ["apply_plan:bf16"] + [k + ":bf16" for k in _FUSED]),
 }
 #: the plan-free variants that reach the other K4 variants (two Newton steps).
+#: the slab path (one-rank NCCL group) and the kernels it must launch.
+SLAB_KW = dict(variant="fd8-cubic", use_fused_matvec=True, halo=6)
+SLAB_REQUIRED = ["stencil_valid:fd8"] + _K1_KEYS + ["apply_plan"] + _FUSED
 VARIANT_PATHS = {
     "planfree:fd8-cubic": (dict(variant="fd8-cubic", use_plan=False),
                            ["interp3d:cubic_bspline"]),
@@ -187,7 +203,9 @@ def circular_conv(taps, symmetric: bool, scale: float, axis: int, device):
 
 
 def _kernel_group(key: str) -> str:
-    for group, marks in (("K1 stencil_axis", ("stencil_axis",)),
+    for group, marks in (("NCCL", ("nccl",)),
+                         ("K1 stencil_axis", ("stencil_axis",)),
+                         ("K5 stencil_valid", ("stencil_valid",)),
                          ("K3 apply_plan_fused", ("apply_plan_fused",)),
                          ("K2 apply_plan", ("apply_plan_kernel",)),
                          ("K4 interp3d", ("interp3d_kernel",)),
@@ -213,13 +231,18 @@ def profile_solve(label: str, solve, unprofiled_wall_s: float) -> None:
         solve()
         torch.cuda.synchronize()
     profiled_wall = time.perf_counter() - t0
-    groups, top = {}, []
+    groups, top, ranges = {}, [], {}
     for ev in prof.key_averages():
         # Kernel events only: operator events repeat their kernels' time.
         if ev.device_type != DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us <= 0:
+            continue
+        if getattr(ev, "is_user_annotation", False) or ev.key.startswith("nccl:"):
+            # Ranges on the device's timeline (NCCL's "nccl:all_gather", ...)
+            # span kernels and copies counted on their own: kept apart.
+            ranges[ev.key] = dict(ms=us / 1e3, count=ev.count)
             continue
         g = _kernel_group(ev.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
@@ -230,7 +253,45 @@ def profile_solve(label: str, solve, unprofiled_wall_s: float) -> None:
          unprofiled_wall_s=unprofiled_wall_s,
          idle_share=1.0 - device_ms / 1e3 / unprofiled_wall_s if device_ms else None,
          groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+         device_ranges=ranges,
          top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in top[:12]])
+
+
+@contextlib.contextmanager
+def slab_group(dev):
+    """A one-rank NCCL group (``repro_torch.distributed.group``) on this
+    card, through a TCP store on a free local port, warmed up by one
+    all-reduce and destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import group as G
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    G.init_slab_group(0, 1, f"tcp://127.0.0.1:{port}", "cuda")
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def valid_conv(taps, scale: float, device):
+    """``F.conv3d`` with a (2R+1, 1, 1) kernel and no padding: the same
+    valid-mode x1 stencil as K5 (the library yardstick; the port never
+    calls it). Returns a function of a stack ``(B, N1, N2, N3)``."""
+    import torch
+    import torch.nn.functional as F
+
+    r = len(taps)
+    w = torch.zeros(2 * r + 1, dtype=torch.float64)
+    for k in range(1, r + 1):
+        w[r + k] = taps[k - 1]
+        w[r - k] = -taps[k - 1]
+    weight = (w * scale).to(torch.float32).reshape(1, 1, 2 * r + 1, 1, 1).to(device)
+    return lambda x: F.conv3d(x[:, None], weight)[:, 0]
 
 
 def grid_sample_linear(coef, q, pad: int):
@@ -330,6 +391,20 @@ def main(argv=None) -> int:
         k1_check(f"prefilter K={s.shape[0]}", PF.prefilter3d(s), prefilter_plain(s))
         for s in (stack2, stack3))
 
+    # K5 at the slab path's shapes: one rank's 264-row extended slab, and a
+    # 5-field trajectory stack of the 4-slab layout (72 rows).
+    k5_inputs = {"1 rank": torch.randn((n + 8, n, n), generator=gen).to(dev),
+                 "4 slabs, 5 fields": torch.randn((5, n // 4 + 8, n, n), generator=gen).to(dev)}
+    k5_scale = 1.0 / (2 * math.pi / n)
+    for label, x in k5_inputs.items():
+        got = P.stencil_valid(x, 0, FD8.FD8_COEFFS, k5_scale)
+        ref = P.stencil_valid_plain(x, 0, FD8.FD8_COEFFS, k5_scale)
+        err = max_err(got, ref)
+        tol = K5_REL * max(float(ref.abs().max()), 1.0)
+        checks.append(dict(case=f"stencil_valid {label} {list(x.shape)}", max_abs_err=err,
+                           tol=tol, ok=err <= tol and got.shape == ref.shape))
+        errs["stencil_valid:fd8"] = max(errs.get("stencil_valid:fd8", 0.0), err)
+
     v_smooth = S.random_velocity(gen, shape, amplitude=0.6, device=dev)
     foot = SL.trace_characteristic(v_smooth, 0.25, "cubic_bspline", 1.0)
     queries = {"foot": foot, "foot-3": (foot - 3.0).contiguous()}
@@ -367,7 +442,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     ok3 = all(c["ok"] for c in checks)
     emit("kernels", size=n, ok=ok3, checks=checks,
-         tolerances=dict(k1_rtol=K1_RTOL, k1_atol=K1_ATOL, plan_rel=PLAN_REL))
+         tolerances=dict(k1_rtol=K1_RTOL, k1_atol=K1_ATOL, plan_rel=PLAN_REL,
+                         k5_rel=K5_REL))
     if not ok3:
         return 1
 
@@ -456,6 +532,9 @@ def main(argv=None) -> int:
              register_wall_s=walls[label], **fields)
         if not ok:
             return 1
+        if label == "solve":
+            solve_ref = dict(v=res.v, iters=res.iters,
+                             pcg=[h["pcg_iters"] for h in res.history])
         if label == "solve_planfree":
             cfg_pf = R.make_transport_config(**kw)
             warped, lf = drive("warp_labels", ["interp3d:linear"],
@@ -498,6 +577,25 @@ def main(argv=None) -> int:
         if not ok:
             return 1
         del res
+
+    # the slab-parallel path on a one-rank NCCL group
+    with slab_group(dev):
+        res, fields = drive("solve_slab", SLAB_REQUIRED,
+                            lambda: R.register_sharded(pair.m0, pair.m1, device=dev,
+                                                       **SLAB_KW))
+    pcg = [h["pcg_iters"] for h in res.history]
+    dv = max_err(res.v, solve_ref["v"])
+    tol = SLAB_V_REL * float(solve_ref["v"].abs().max())
+    ok = (solved(res) and not fields["missing"] and not fields["plain_runs"]
+          and res.iters == solve_ref["iters"] and pcg == solve_ref["pcg"] and dv <= tol)
+    walls["solve_slab"] = fields.pop("wall_s")
+    emit("solve_slab", ok=ok, size=n, ranks=1, backend="nccl", **SLAB_KW,
+         **solve_fields(res), register_wall_s=walls["solve_slab"],
+         solve_iters=solve_ref["iters"], solve_pcg_per_step=solve_ref["pcg"],
+         max_abs_dv_vs_solve=dv, tol=tol, **fields)
+    if not ok:
+        return 1
+    del res
 
     def path_count(key):
         return sum(snap.get(key, 0) for snap in path_launches.values())
@@ -581,6 +679,22 @@ def main(argv=None) -> int:
                                    m * (K4_WEIGHT_OPS[basis] + kf * TAP_OPS[support])))
             rows[f"interp3d:{basis}{sfx}"] = dict(row[1], shape=list(coef1.shape),
                                                   k2=row[2])
+    k5_rows = {}
+    for label, x in k5_inputs.items():
+        lib = valid_conv(FD8.FD8_COEFFS, k5_scale, dev)
+        xb = x if x.dim() == 4 else x[None]
+        with torch.no_grad():
+            lib_dev = max_err(lib(xb).reshape(-1), P.stencil_valid(x, 0, FD8.FD8_COEFFS,
+                                                                   k5_scale).reshape(-1))
+            lib_ms = timed(lambda: lib(xb), reps)
+        out_numel = x.numel() // x.shape[-3] * (x.shape[-3] - 8)
+        k5_rows[label] = dict(
+            ms=timed(lambda x=x: P.stencil_valid(x, 0, FD8.FD8_COEFFS, k5_scale), reps),
+            plain_ms=timed(lambda x=x: P.stencil_valid_plain(x, 0, FD8.FD8_COEFFS, k5_scale),
+                           plain_reps),
+            library_ms=lib_ms, library_max_abs_dev=lib_dev,
+            bound=bound_ms(nbytes(x) + 4 * out_numel, 13 * out_numel), shape=list(x.shape))
+    rows["stencil_valid:fd8"] = dict(k5_rows["1 rank"], stack=k5_rows["4 slabs, 5 fields"])
     for key, row in rows.items():
         row["launches_on_paths"] = path_count(key)
     emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows)
@@ -590,6 +704,10 @@ def main(argv=None) -> int:
         kw = PATHS[label][0]
         profile_solve(label, lambda kw=kw: R.register(pair.m0, pair.m1, device=dev, **kw),
                       walls[label])
+    with slab_group(dev):
+        profile_solve("solve_slab", lambda: R.register_sharded(pair.m0, pair.m1, device=dev,
+                                                               **SLAB_KW),
+                      walls["solve_slab"])
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -5,13 +5,17 @@ FD8 runs on the K1 stencil kernel (``repro_torch.kernels.fd8``), which takes
 its plain ``torch.roll`` version for CPU tensors. The JAX ``backend=`` switch
 is gone: the device of the tensor decides. The spectral operators use
 ``torch.fft`` (cuFFT on the card), as the JAX package left them to XLA.
-Every operator takes stacks: leading dimensions are a batch.
+Every operator takes stacks: leading dimensions are a batch. With ``shard``
+(slab-parallel solve) ``grad``/``div`` take the halo operators of
+``repro_torch.distributed.halo``: FD8 with a halo exchange and the
+valid-mode x1 stencil (K5), spectral on the all-gathered field.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed import halo as _halo
 from ..kernels import fd8 as _fd8
 from . import grid as _grid
 
@@ -58,17 +62,17 @@ def spectral_div(w: torch.Tensor) -> torch.Tensor:
     return torch.fft.irfftn(acc, s=shape, dim=_DIMS).to(w.dtype)
 
 
-def grad(f: torch.Tensor, scheme: str = "fd8") -> torch.Tensor:
+def grad(f: torch.Tensor, scheme: str = "fd8", shard=None) -> torch.Tensor:
     if scheme == "fd8":
-        return fd8_grad(f)
+        return fd8_grad(f) if shard is None else _halo.fd8_grad(f, shard)
     if scheme == "fft":
-        return spectral_grad(f)
+        return spectral_grad(f) if shard is None else _halo.spectral_grad(f, shard)
     raise ValueError(f"unknown derivative scheme: {scheme}")
 
 
-def div(w: torch.Tensor, scheme: str = "fd8") -> torch.Tensor:
+def div(w: torch.Tensor, scheme: str = "fd8", shard=None) -> torch.Tensor:
     if scheme == "fd8":
-        return fd8_div(w)
+        return fd8_div(w) if shard is None else _halo.fd8_div(w, shard)
     if scheme == "fft":
-        return spectral_div(w)
+        return spectral_div(w) if shard is None else _halo.spectral_div(w, shard)
     raise ValueError(f"unknown derivative scheme: {scheme}")

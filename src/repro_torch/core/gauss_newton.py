@@ -7,6 +7,13 @@ backtracking line search -> v update. The JAX step is one jitted computation
 with device while-loops; here PCG and the line search are host loops over
 the same fp32 arithmetic, so the iteration counts match. The batched driver
 is ROADMAP A14.
+
+Slab-parallel solves (``cfg.shard`` set, ``repro_torch.distributed``) run
+this same host loop on every rank of the slab group, SPMD, where JAX injects
+its step into a ``shard_map``. Each host-side decision (the PCG stop, the
+Armijo accept, the Newton stop) reads scalars that are all-reduced over the
+group (or computed from gathered fields), which are the same on every rank,
+so every rank takes the same branch and issues the same collectives.
 """
 
 from __future__ import annotations
@@ -68,16 +75,17 @@ def newton_step(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float
     """One Newton step at ``v`` (``beta, gamma, eta`` rounded to fp32)."""
     beta, gamma, eta = _f32(beta), _f32(gamma), _f32(eta)
     gs = _grad.evaluate(m0, m1, v, beta, gamma, cfg)
-    gnorm = _grid.norm_l2(gs.g)
+    gnorm = _grid.norm_l2(gs.g, shard=cfg.shard)
 
     mv = partial(_hess.matvec, gs=gs, v=v, beta=beta, gamma=gamma, cfg=cfg)
-    precond = _pcg.make_reg_preconditioner(beta, gamma)
-    sol = _pcg.solve(mv, -gs.g, precond, tol=eta, max_iters=gn.max_pcg)
+    precond = _pcg.make_reg_preconditioner(beta, gamma, shard=cfg.shard)
+    sol = _pcg.solve(mv, -gs.g, precond, tol=eta, max_iters=gn.max_pcg,
+                     shard=cfg.shard)
     vt = sol.x
 
     # Armijo backtracking: J(v + a*vt) <= J(v) + c1*a*<g, vt>.
     j0 = gs.j_mismatch + gs.j_reg
-    gdotp = _grid.inner(gs.g, vt)
+    gdotp = _grid.inner(gs.g, vt, shard=cfg.shard)
 
     def trial_obj(a):
         # The trial velocity moves the footpoints: solve_state builds one

@@ -38,7 +38,7 @@ def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
              gamma: float, cfg: _tr.TransportConfig) -> GradientState:
     foot_fwd = _tr.footpoints(v, cfg, sign=1.0)
     foot_adj = _tr.footpoints(v, cfg, sign=-1.0)
-    divv = _deriv.div(v, scheme=cfg.deriv)
+    divv = _deriv.div(v, scheme=cfg.deriv, shard=cfg.shard)
     plan_fwd = _tr.interp_plan(foot_fwd, cfg)
     plan_adj = _tr.interp_plan(foot_adj, cfg)
 
@@ -51,7 +51,7 @@ def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
 
     grad_m_traj = _tr.grad_traj(m_traj, cfg) if cfg.use_plan else None
     body = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj)
-    g = _spec.apply_regop(v, beta, gamma) + body
+    g = _spec.apply_regop(v, beta, gamma, shard=cfg.shard) + body
 
     return GradientState(
         g=g,
@@ -61,7 +61,7 @@ def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
         foot_adj=foot_adj,
         divv=divv,
         j_mismatch=meas.value(m_final, m1, cfg),
-        j_reg=_spec.reg_energy(v, beta, gamma),
+        j_reg=_spec.reg_energy(v, beta, gamma, shard=cfg.shard),
         plan_fwd=plan_fwd,
         plan_adj=plan_adj,
         grad_m_traj=grad_m_traj,

@@ -3,8 +3,9 @@
 Omega = (0, 2*pi)^3 with periodic boundary conditions and N = (N1, N2, N3)
 equispaced nodes, h_i = 2*pi / N_i. Scalar fields are ``(N1, N2, N3)``,
 vector fields ``(3, N1, N2, N3)``, query points ``(3, ...)`` in index units.
-The slab-sharded ``shard=`` arguments of the JAX package are not ported
-(ROADMAP A18).
+With ``shard`` (a ``repro_torch.distributed.halo.ShardInfo``) the fields
+are x1 slabs and ``inner`` all-reduces its local partial sum over the
+slab group.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 TWO_PI = 2.0 * math.pi
 
@@ -41,17 +43,28 @@ def index_coords(shape: Sequence[int], dtype=torch.float32, device=None) -> torc
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
 
 
-def inner(a: torch.Tensor, b: torch.Tensor, shape: Sequence[int] | None = None
-          ) -> torch.Tensor:
+def inner(a: torch.Tensor, b: torch.Tensor, shape: Sequence[int] | None = None,
+          shard=None) -> torch.Tensor:
     """Discrete L2 inner product with quadrature weight h1*h2*h3 (fp32 sum
-    over all axes; scalar or vector fields)."""
+    over all axes; scalar or vector fields).
+
+    With ``shard``, ``a`` and ``b`` are x1 slabs: the quadrature weight uses
+    the *global* grid and the local partial sum is all-reduced over the slab
+    group, so every rank holds the global inner product.
+    """
     if shape is None:
         shape = a.shape[-3:]
-    return cell_volume(shape) * torch.sum(a * b)
+    if shard is not None:
+        shape = shard.global_shape(shape)
+    s = torch.sum(a * b)
+    if shard is not None:
+        dist.all_reduce(s, group=shard.group)
+    return cell_volume(shape) * s
 
 
-def norm_l2(a: torch.Tensor, shape: Sequence[int] | None = None) -> torch.Tensor:
-    return torch.sqrt(inner(a, a, shape))
+def norm_l2(a: torch.Tensor, shape: Sequence[int] | None = None,
+            shard=None) -> torch.Tensor:
+    return torch.sqrt(inner(a, a, shape, shard=shard))
 
 
 def wavenumbers(shape: Sequence[int], dtype=torch.float32, rfft: bool = True,

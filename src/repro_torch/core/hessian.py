@@ -12,19 +12,30 @@ footpoints (K4) and recompute the trajectory gradients. With
 (``kernels.interp3d.apply_plan_fused``): each step gathers the stacked
 [field, source] coefficients through the plan and applies the RK2 update in
 the same kernel. The two contractions over the cached trajectory gradients
-(einsums in JAX, left to XLA) are PyTorch broadcast products and sums.
+(einsums in JAX, left to XLA) are PyTorch broadcast products and sums. With
+``cfg.shard`` the plans live in the halo-extended slab's frame, so the fused
+path gathers from halo-extended coefficients (K3 on the slab path).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed import halo as _halo
 from ..kernels import interp3d as _k
 from . import gradient as _grad
 from . import interp as _interp
 from . import measures as _meas
 from . import spectral as _spec
 from . import transport as _tr
+
+
+def _fused_coefficients(stack: torch.Tensor, cfg: _tr.TransportConfig) -> torch.Tensor:
+    """Interpolation coefficients of a stacked field in the plan's frame
+    (the halo-extended slab when sharded)."""
+    if cfg.shard is not None:
+        return _halo.sl_coefficients(stack, cfg.interp, cfg.shard)
+    return _interp.prefilter_for(stack, cfg.interp)
 
 
 def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
@@ -39,7 +50,7 @@ def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
 
     mt = torch.zeros_like(gs.m_traj[0])
     for j in range(nt):
-        coefs = _interp.prefilter_for(torch.stack([mt, sources[j]]), cfg.interp)
+        coefs = _fused_coefficients(torch.stack([mt, sources[j]]), cfg)
         mt = _k.apply_plan_fused(coefs, gs.plan_fwd, sources[j + 1],
                                  "inc_state", dt)
 
@@ -52,7 +63,7 @@ def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
     lam = lt1
     traj = [lt1]
     for j in range(nt):
-        coefs = _interp.prefilter_for(torch.stack([lam, divv * lam]), cfg.interp)
+        coefs = _fused_coefficients(torch.stack([lam, divv * lam]), cfg)
         lam = _k.apply_plan_fused(coefs, gs.plan_adj, divv, "inc_adjoint", dt)
         traj.append(lam)
     lam_traj = torch.stack(traj[::-1])
@@ -63,7 +74,7 @@ def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
     # Trapezoid body force, the JAX einsum "t,t...,tc...->c...".
     body = torch.sum(w.reshape(-1, 1, 1, 1, 1) * lam_traj[:, None] * gs.grad_m_traj,
                      dim=0)
-    return _spec.apply_regop(vt, beta, gamma) + body
+    return _spec.apply_regop(vt, beta, gamma, shard=cfg.shard) + body
 
 
 def matvec(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
@@ -78,4 +89,4 @@ def matvec(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
     lt_traj = _tr.solve_adjoint(lt1, v, cfg, foot_adj=gs.foot_adj,
                                 divv=gs.divv, plan_adj=gs.plan_adj)
     body = _tr.body_force(lt_traj, gs.m_traj, cfg, grad_m_traj=gs.grad_m_traj)
-    return _spec.apply_regop(vt, beta, gamma) + body
+    return _spec.apply_regop(vt, beta, gamma, shard=cfg.shard) + body

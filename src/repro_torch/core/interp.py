@@ -144,12 +144,15 @@ class InterpPlan:
 
 
 def build_plan(q: torch.Tensor, method: str = "cubic_bspline", weight_dtype=None,
-               shape=None) -> InterpPlan:
+               shape=None, wrap=(True, True, True)) -> InterpPlan:
     """Build an :class:`InterpPlan` for query points ``q`` (index units).
 
-    ``shape`` is the source-field shape (default ``q.shape[1:]``). Indices
-    wrap periodically with floor-mod. ``weight_dtype`` downcasts the weights
-    only (fp32 when None).
+    ``shape`` is the source-field shape (default ``q.shape[1:]``). ``wrap``
+    selects per axis a periodic index wrap (floor-mod) or, where False, a
+    clamp into the field: the slab-parallel solve's x1 axis is a
+    halo-extended, non-periodic slab. K2 and K3 take either plan unchanged,
+    since the wrap or clamp is baked into the flat indices. ``weight_dtype``
+    downcasts the weights only (fp32 when None).
     """
     if method not in METHODS:
         raise ValueError(f"unknown interpolation method: {method}")
@@ -163,12 +166,13 @@ def build_plan(q: torch.Tensor, method: str = "cubic_bspline", weight_dtype=None
     tap = torch.arange(support, dtype=torch.int32, device=q.device).reshape(
         (support,) + (1,) * (q.dim() - 1))
 
-    def _tap_idx(b, n):
-        return torch.remainder(b[None] + tap, n)
+    def _tap_idx(b, n, do_wrap):
+        i = b[None] + tap
+        return torch.remainder(i, n) if do_wrap else torch.clamp(i, 0, n - 1)
 
-    idx1 = _tap_idx(base[0], n1) * (n2 * n3)
-    idx2 = _tap_idx(base[1], n2) * n3
-    idx3 = _tap_idx(base[2], n3)
+    idx1 = _tap_idx(base[0], n1, wrap[0]) * (n2 * n3)
+    idx2 = _tap_idx(base[1], n2, wrap[1]) * n3
+    idx3 = _tap_idx(base[2], n3, wrap[2])
     w = tuple(torch.stack(_k.plan_weights(method, t[a], weight_dtype), dim=0)
               for a in range(3))
     return InterpPlan((idx1, idx2, idx3), w, method, shape)

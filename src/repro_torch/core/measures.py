@@ -3,7 +3,9 @@
 The solver touches D through three quantities: ``value`` (the mismatch part
 of J), ``terminal_adjoint`` (lambda(1) = -dD/dm(1)) and ``gn_terminal``
 (lt(1) = -H_D mt(1), the Gauss-Newton terminal of the incremental adjoint).
-Only SSD is ported; NCC and NGF are queued (ROADMAP A12) and raise.
+Only SSD is ported; NCC and NGF are queued (ROADMAP A12) and raise. The
+reductions honour ``cfg.shard`` (slab-parallel solve: all-reduced inner
+products over the global grid).
 """
 
 from __future__ import annotations
@@ -13,6 +15,16 @@ import dataclasses
 import torch
 
 from . import grid as _grid
+
+
+def _domain_mean(f: torch.Tensor, shard=None) -> torch.Tensor:
+    """Mean of a scalar field over the (global) domain; all-reduced when
+    sharded."""
+    shape = tuple(f.shape[-3:])
+    if shard is not None:
+        shape = shard.global_shape(shape)
+    vol = _grid.cell_volume(shape) * float(shape[0] * shape[1] * shape[2])
+    return _grid.inner(f, torch.ones_like(f), shard=shard) / vol
 
 
 class DistanceMeasure:
@@ -46,7 +58,7 @@ class SSD(DistanceMeasure):
 
     def value(self, m_final, m1, cfg):
         r = m_final - m1
-        return 0.5 * _grid.inner(r, r)
+        return 0.5 * _grid.inner(r, r, shard=cfg.shard)
 
     def terminal_adjoint(self, m_final, m1, cfg):
         return m1 - m_final

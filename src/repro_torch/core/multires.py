@@ -9,8 +9,10 @@ real. ``restrict(prolong(f))`` is the identity for coarse fields without
 Nyquist content. The stopping test at warm levels is measured against the
 coarsest level's initial gradient norm (``gnorm_ref``).
 
-The JAX driver's ``solve_fn=`` hook (the slab solver's per-level closure) is
-not ported with it; the slab path is ROADMAP A18.
+``solve_fn=`` replaces the per-level solver: the slab-parallel
+``register_sharded`` passes one that cuts each level's (gathered) images
+into slabs and solves the level slab-parallel, so restriction and
+prolongation run on the gathered fields on every rank.
 """
 
 from __future__ import annotations
@@ -146,7 +148,7 @@ def solve_multires(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
                    level_weight_dtypes: Optional[Sequence] = None,
                    presmooth_sigma: float = 0.0, v0: torch.Tensor | None = None,
                    gnorm_ref: Optional[float] = None,
-                   verbose: bool = False) -> MultiresResult:
+                   verbose: bool = False, solve_fn=None) -> MultiresResult:
     """Coarse-to-fine Gauss-Newton: solve each pyramid level, prolong, refine.
 
     levels              : grid shapes, coarsest first (default halving pyramid)
@@ -163,6 +165,10 @@ def solve_multires(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
                           warm-start the coarsest level
     gnorm_ref           : reference of the relative-gradient stopping test
                           (default: the coarsest level's initial gradient norm)
+    solve_fn            : per-level solver with the signature of
+                          ``gauss_newton.solve(m0, m1, cfg, gn, v0=, gnorm_ref=,
+                          eta0=, verbose=)`` returning a result whose ``v`` is
+                          the level's whole velocity (default: that function)
     """
     shape = tuple(int(n) for n in m0.shape)
     levels = [tuple(int(n) for n in s) for s in (levels or default_level_shapes(shape))]
@@ -215,8 +221,8 @@ def solve_multires(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
             eta0 = min(gn.forcing_max, level_results[-1].rel_grad ** 0.5)
         if verbose:
             print(f"[multires] level {li}: {lev} (warm={'yes' if v0_l is not None else 'no'})")
-        res = _gn.solve(m0_l, m1_l, cfg_l, gn_l, v0=v0_l, gnorm_ref=gnorm_ref,
-                        eta0=eta0, verbose=verbose)
+        res = (solve_fn or _gn.solve)(m0_l, m1_l, cfg_l, gn_l, v0=v0_l,
+                                      gnorm_ref=gnorm_ref, eta0=eta0, verbose=verbose)
         if gnorm_ref is None and res.gnorm0 > 0:
             gnorm_ref = res.gnorm0
         v = res.v

@@ -11,10 +11,10 @@ from . import spectral as _spec
 from . import transport as _tr
 
 
-def mismatch(m_final: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
-    """0.5 * || m(.,1) - m1 ||_L2^2."""
+def mismatch(m_final: torch.Tensor, m1: torch.Tensor, shard=None) -> torch.Tensor:
+    """0.5 * || m(.,1) - m1 ||_L2^2 (global; all-reduced when sharded)."""
     r = m_final - m1
-    return 0.5 * _grid.inner(r, r)
+    return 0.5 * _grid.inner(r, r, shard=shard)
 
 
 def relative_mismatch(m_final: torch.Tensor, m1: torch.Tensor,
@@ -31,4 +31,5 @@ def objective(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
     """J(v) per eq. (1a); solves the state equation internally."""
     m_traj = _tr.solve_state(m0, v, cfg, foot=foot, plan=plan)
     meas = _meas.resolve(cfg.measure)
-    return meas.value(m_traj[-1], m1, cfg) + _spec.reg_energy(v, beta, gamma)
+    return (meas.value(m_traj[-1], m1, cfg)
+            + _spec.reg_energy(v, beta, gamma, shard=cfg.shard))

@@ -4,7 +4,10 @@
 Preconditioner: the spectral inverse of the regularization operator,
 (beta*A)^-1 with the identity on the zero mode. The JAX ``while_loop``
 becomes a host loop; the stopping test (``rnorm > tol*bnorm``, fp32) and the
-breakdown guards are the same, so the iteration counts match.
+breakdown guards are the same, so the iteration counts match. With ``shard``
+(slab-parallel solve) every inner product is all-reduced over the slab
+group, so the stopping test reads the same scalars on every rank and every
+rank runs the same number of iterations.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ class PCGResult:
 
 def solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
           precond: Callable[[torch.Tensor], torch.Tensor], tol: float,
-          max_iters: int = 500) -> PCGResult:
+          max_iters: int = 500, shard=None) -> PCGResult:
     """Solve  M^-1 H x = M^-1 b  to  ||r|| <= tol * ||b||  (L2 on the grid)."""
-    inner = partial(_grid.inner, shape=b.shape[-3:])
+    inner = partial(_grid.inner, shape=b.shape[-3:], shard=shard)
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
@@ -56,11 +59,12 @@ def solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return PCGResult(x=x, iters=k, rel_residual=rel)
 
 
-def make_reg_preconditioner(beta: float, gamma: float
+def make_reg_preconditioner(beta: float, gamma: float, shard=None
                             ) -> Callable[[torch.Tensor], torch.Tensor]:
     """(beta*A)^-1 spectral preconditioner."""
 
     def precond(r: torch.Tensor) -> torch.Tensor:
-        return _spec.apply_inv_regop(r, beta, gamma, zero_mean_identity=True)
+        return _spec.apply_inv_regop(r, beta, gamma, zero_mean_identity=True,
+                                     shard=shard)
 
     return precond

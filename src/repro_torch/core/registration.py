@@ -1,5 +1,6 @@
-"""Public registration API: ``register`` and ``register_multires`` (port of
-``repro.core.registration``, single pair).
+"""Public registration API: ``register``, ``register_multires`` and the
+slab-parallel ``register_sharded`` (port of ``repro.core.registration``,
+single pair).
 
 Variant tags follow the paper's Table 6:
     fft-cubic    : FFT first derivatives + cubic Lagrange interpolation
@@ -12,8 +13,8 @@ The JAX ``backend=`` argument becomes ``device=``: the entry points run on
 the card unless the caller passes ``device="cpu"``, and raise when the card
 is asked for and absent. ``mixed_precision`` (bf16 interpolation weights)
 and ``use_plan=False`` (plan-free interpolation, kernel K4) run. Not ported
-yet, and raising ``NotImplementedError``: NCC/NGF (ROADMAP A12), batches
-(A14) and slab meshes (A18).
+yet, and raising ``NotImplementedError``: NCC/NGF (ROADMAP A12) and batches
+(A14), also the ensemble x slab mode of ``register_sharded``.
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as _device
+from ..distributed import claire_dist as _dist
 from . import gauss_newton as _gn
 from . import measures as _meas
 from . import metrics as _metrics
@@ -222,7 +226,110 @@ def register_multires(
     )
 
 
-def register_sharded(*args, **kwargs):
-    """Slab-sharded registration over a device mesh (``mesh=``)."""
-    raise NotImplementedError(
-        "slab-sharded registration (mesh=) is not ported yet (ROADMAP A18)")
+def _check_slab_group(group, dev: torch.device) -> None:
+    """Raise without an initialised group, or when its backend does not suit
+    the device (NCCL for ``cuda``, gloo for ``cpu``)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "register_sharded needs an initialised torch.distributed group on every "
+            "rank (repro_torch.distributed.group.init_slab_group)")
+    backend = dist.get_backend(group)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    if backend != want:
+        raise RuntimeError(f"register_sharded on {dev.type} needs a {want} group, "
+                           f"got {backend}")
+
+
+def register_sharded(
+    m0,
+    m1,
+    group=None,
+    variant: str = "fd8-cubic",
+    beta: float = 5e-4,
+    gamma: float = 1e-4,
+    nt: int = 4,
+    tol_rel_grad: float = 5e-2,
+    max_newton: int = 50,
+    continuation: bool = False,
+    halo: int = 6,
+    multires: bool = False,
+    levels: Optional[Sequence[Tuple[int, int, int]]] = None,
+    n_levels: Optional[int] = None,
+    min_size: int = 8,
+    coarse_tol: Optional[float] = None,
+    level_newton: Optional[Sequence[int]] = None,
+    coarse_variant: Optional[str] = None,
+    presmooth_sigma: float = 0.0,
+    mixed_precision: bool = False,
+    use_plan: bool = True,
+    measure: object = "ssd",
+    use_fused_matvec: bool = False,
+    halo_compression: str = "none",
+    v0=None,
+    gnorm_ref: Optional[float] = None,
+    verbose: bool = False,
+    device="cuda",
+):
+    """Register with the grid cut into x1 slabs over the ranks of ``group``
+    (a ``torch.distributed`` group; None: the default one).
+
+    Called on every rank with the *global* images; each rank solves on its
+    slab (``repro_torch.distributed.claire_dist.solve_slab``): FD8 and SL
+    interpolation exchange halos, spectral operators all-gather, inner
+    products all-reduce. With ``multires`` (or ``levels``) each level of the
+    grid continuation is a slab solve again, restriction and prolongation
+    run on the gathered fields. Returns what :func:`register` (or
+    :func:`register_multires`) returns, with the gathered velocity and the
+    same scores, on every rank.
+
+    ``halo`` is the interpolation halo in voxels and a contract: each SL
+    step's footpoint displacement along x1 stays within ``halo - 2``;
+    footpoints past it are clamped to the exchanged slab. ``halo_compression
+    ="int8"`` sends the halos as absmax int8. The group's backend must suit
+    ``device``: NCCL on ``cuda``, gloo on ``cpu``. Batched (4D) images, the
+    ensemble x slab mode, need the batched driver (ROADMAP A14).
+    """
+    if np.ndim(m0) == 4:
+        raise NotImplementedError(
+            "batched (ensemble x slab) sharded registration needs the batched "
+            "Newton driver, which is not ported yet (ROADMAP A14)")
+    dev = _device.resolve(device)
+    _check_slab_group(group, dev)
+    cfg_kw = dict(nt=nt, mixed_precision=mixed_precision, use_plan=use_plan,
+                  measure=measure, use_fused_matvec=use_fused_matvec)
+    cfg = make_transport_config(variant, **cfg_kw)
+    m0 = _device.as_tensor(m0, dev)
+    m1 = _device.as_tensor(m1, dev)
+    if v0 is not None:
+        v0 = _device.as_tensor(v0, dev)
+    gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
+                          max_newton=max_newton, continuation=continuation)
+
+    def solve_fn(m0_l, m1_l, cfg_l, gn_l, **kw):
+        return _dist.solve_slab(m0_l, m1_l, cfg_l, gn_l, group=group, halo=halo,
+                                compress=halo_compression, **kw)
+
+    if not (multires or levels is not None):
+        res = solve_fn(m0, m1, cfg, gn_cfg, v0=v0, gnorm_ref=gnorm_ref, verbose=verbose)
+        m_warped, mis, detf = _score_single(m0, m1, res.v, cfg)
+        return RegistrationResult(
+            v=res.v, m_warped=m_warped, mismatch_rel=mis, detF=detf, iters=res.iters,
+            matvecs=res.matvecs, rel_grad=res.rel_grad, converged=res.converged,
+            wall_time_s=res.wall_time_s, history=res.history)
+
+    if levels is None:
+        levels = _mr.default_level_shapes(m0.shape, n_levels=n_levels, min_size=min_size)
+    level_cfgs = None
+    if coarse_variant is not None:
+        coarse_cfg = make_transport_config(coarse_variant, **cfg_kw)
+        level_cfgs = [coarse_cfg] * (len(levels) - 1) + [cfg]
+    res = _mr.solve_multires(m0, m1, cfg, gn_cfg, levels=levels, coarse_tol=coarse_tol,
+                             level_newton=level_newton, level_cfgs=level_cfgs,
+                             presmooth_sigma=presmooth_sigma, v0=v0,
+                             gnorm_ref=gnorm_ref, verbose=verbose, solve_fn=solve_fn)
+    m_warped, mis, detf = _score_single(m0, m1, res.v, cfg)
+    return MultiresRegistrationResult(
+        v=res.v, m_warped=m_warped, mismatch_rel=mis, detF=detf, iters=res.iters,
+        fine_iters=res.fine_iters, matvecs=res.matvecs, rel_grad=res.rel_grad,
+        converged=res.converged, wall_time_s=res.wall_time_s, levels=list(res.levels),
+        level_results=list(res.level_results), history=res.history)

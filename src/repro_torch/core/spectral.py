@@ -7,12 +7,16 @@ form by Sherman–Morrison; the k=0 mode is zero for A and the identity for
 A^-1. These run on ``torch.fft`` (cuFFT on the card) and need no hand
 kernel, as the JAX package left them to XLA. The three components of a
 vector field go through one batched ``rfftn`` over the trailing three axes.
+With ``shard`` (slab-parallel solve) ``v`` is an x1 slab: the operator runs
+on the all-gathered field and returns the local slab (there is no
+distributed FFT), and ``reg_energy`` is evaluated on the gathered field.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed import halo as _halo
 from . import grid as _grid
 
 _DIMS = (-3, -2, -1)
@@ -37,8 +41,10 @@ def _vec_irfftn(vh: torch.Tensor, shape, dtype) -> torch.Tensor:
     return torch.fft.irfftn(vh, s=tuple(shape), dim=_DIMS).to(dtype)
 
 
-def apply_regop(v: torch.Tensor, beta: float, gamma: float) -> torch.Tensor:
+def apply_regop(v: torch.Tensor, beta: float, gamma: float, shard=None) -> torch.Tensor:
     """A v = beta*(-Lap) v + gamma * k (k . vhat)."""
+    if shard is not None:
+        return _halo.spectral_op(lambda f: apply_regop(f, beta, gamma), v, shard)
     shape = tuple(v.shape[-3:])
     ks, k2, _ = _khat(shape, v.device)
     vh = _vec_rfftn(v)
@@ -48,9 +54,12 @@ def apply_regop(v: torch.Tensor, beta: float, gamma: float) -> torch.Tensor:
 
 
 def apply_inv_regop(v: torch.Tensor, beta: float, gamma: float,
-                    zero_mean_identity: bool = True) -> torch.Tensor:
+                    zero_mean_identity: bool = True, shard=None) -> torch.Tensor:
     """A^-1 v via Sherman–Morrison; the k=0 mode maps by the identity (or to
     zero with ``zero_mean_identity=False``)."""
+    if shard is not None:
+        return _halo.spectral_op(
+            lambda f: apply_inv_regop(f, beta, gamma, zero_mean_identity), v, shard)
     shape = tuple(v.shape[-3:])
     ks, k2, kt2 = _khat(shape, v.device)
     vh = _vec_rfftn(v)
@@ -78,8 +87,11 @@ def leray_project(v: torch.Tensor) -> torch.Tensor:
     return _vec_irfftn(out, shape, v.dtype)
 
 
-def reg_energy(v: torch.Tensor, beta: float, gamma: float) -> torch.Tensor:
-    """0.5 * <A v, v>."""
+def reg_energy(v: torch.Tensor, beta: float, gamma: float, shard=None) -> torch.Tensor:
+    """0.5 * <A v, v>; sharded, on the gathered field (the spectral operator
+    needs the gather anyway), so every rank holds the same scalar."""
+    if shard is not None:
+        return reg_energy(_halo.gather_full(v, shard), beta, gamma)
     av = apply_regop(v, beta, gamma)
     return 0.5 * _grid.inner(av, v, v.shape[-3:])
 

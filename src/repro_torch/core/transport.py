@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..distributed import halo as _halo
 from . import derivatives as _deriv
 from . import semilag as _sl
 
@@ -36,9 +37,14 @@ class TransportConfig:
                        are ROADMAP A12)
     use_fused_matvec : run the PCG Hessian matvec through the fused
                        gather+epilogue kernel K3 (requires ``use_plan``)
+    shard            : ``repro_torch.distributed.halo.ShardInfo`` or None.
+                       When set, every solve runs on the rank's x1 slab: FD8
+                       and SL interpolation exchange halos, spectral
+                       operators all-gather, inner products all-reduce
+                       (``repro_torch.distributed``)
 
-    The JAX config's ``backend`` is dropped (kernels dispatch on the device of
-    their tensors), and so is ``shard`` (the slab path is ROADMAP A18).
+    The JAX config's ``backend`` is dropped: kernels dispatch on the device
+    of their tensors.
     """
 
     interp: str = "cubic_bspline"
@@ -48,6 +54,7 @@ class TransportConfig:
     use_plan: bool = True
     measure: object = "ssd"
     use_fused_matvec: bool = False
+    shard: object = None
 
 
 def _dt(cfg: TransportConfig) -> float:
@@ -58,20 +65,24 @@ def footpoints(v: torch.Tensor, cfg: TransportConfig, sign: float = 1.0) -> torc
     """Characteristic footpoints; sign=+1 for forward solves, -1 for
     backward (adjoint) solves."""
     return _sl.trace_characteristic(v, _dt(cfg), method=cfg.interp, sign=sign,
-                                    weight_dtype=cfg.weight_dtype)
+                                    weight_dtype=cfg.weight_dtype, shard=cfg.shard)
 
 
 def interp_plan(foot: torch.Tensor, cfg: TransportConfig):
-    """Interpolation plan for fixed footpoints (None when plans are off)."""
+    """Interpolation plan for fixed footpoints (None when plans are off);
+    sharded, in the halo-extended slab's frame."""
     if not cfg.use_plan:
         return None
+    if cfg.shard is not None:
+        return _halo.build_plan(foot, cfg.interp, cfg.weight_dtype, cfg.shard)
     return _sl.build_plan(foot, cfg.interp, cfg.weight_dtype, shape=foot.shape[-3:])
 
 
 def grad_traj(m_traj: torch.Tensor, cfg: TransportConfig) -> torch.Tensor:
     """Spatial gradients of a trajectory, shape (nt+1, 3, N1, N2, N3): one
-    batched derivative per axis over the whole stack."""
-    return _deriv.grad(m_traj, scheme=cfg.deriv)
+    batched derivative per axis over the whole stack (sharded: one stacked
+    halo exchange)."""
+    return _deriv.grad(m_traj, scheme=cfg.deriv, shard=cfg.shard)
 
 
 def solve_state(m0: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
@@ -84,7 +95,8 @@ def solve_state(m0: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
     traj = [m0]
     m = m0
     for _ in range(cfg.nt):
-        m = _sl.sl_step(m, foot, cfg.interp, cfg.weight_dtype, plan=plan)
+        m = _sl.sl_step(m, foot, cfg.interp, cfg.weight_dtype, plan=plan,
+                        shard=cfg.shard)
         traj.append(m)
     return torch.stack(traj)
 
@@ -100,14 +112,15 @@ def solve_adjoint(lam1: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
     if plan_adj is None:
         plan_adj = interp_plan(foot_adj, cfg)
     if divv is None:
-        divv = _deriv.div(v, scheme=cfg.deriv)
+        divv = _deriv.div(v, scheme=cfg.deriv, shard=cfg.shard)
     dt = _dt(cfg)
     traj_rev = [lam1]
     lam = lam1
     for _ in range(cfg.nt):
         src0 = divv * lam
         lam = _sl.sl_step_with_source(lam, src0, divv, foot_adj, dt, cfg.interp,
-                                      cfg.weight_dtype, plan=plan_adj)
+                                      cfg.weight_dtype, plan=plan_adj,
+                                      shard=cfg.shard)
         traj_rev.append(lam)
     # traj_rev[j] = lambda at t_{nt-j}; reorder to forward time.
     return torch.stack(traj_rev[::-1])
@@ -130,7 +143,8 @@ def solve_inc_state(vt: torch.Tensor, v: torch.Tensor, m_traj: torch.Tensor,
     mt = torch.zeros_like(m_traj[0])
     for j in range(cfg.nt):
         mt_adv, s0_adv = _sl.sl_step_many(torch.stack([mt, sources[j]]), foot,
-                                          cfg.interp, cfg.weight_dtype, plan=plan)
+                                          cfg.interp, cfg.weight_dtype, plan=plan,
+                                          shard=cfg.shard)
         mt = mt_adv + 0.5 * dt * (s0_adv + sources[j + 1])
     return mt
 

@@ -1,0 +1,93 @@
+"""Process groups for the slab-parallel solve (the counterpart of the mesh
+helpers the JAX slab code takes from ``repro.launch.mesh``).
+
+A slab solve runs one process per rank, each on its own card (``cuda``,
+NCCL) or on the CPU (``cpu``, gloo). Nothing here reads a cluster: the
+caller names the rendezvous (``tcp://localhost:<port>`` or
+``file://<path>``), the world size and the rank. A ``cuda`` group without
+NCCL raises; there is no fallback to gloo.
+
+``run_ranks`` runs a function on P CPU ranks in fresh processes, for tests
+and rehearsals without a card.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import tempfile
+import time
+from typing import Callable, List, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+#: Seconds a collective may wait for its peers before it raises.
+DEFAULT_TIMEOUT_S = 300
+
+
+def init_slab_group(rank: int, world_size: int, init_method: str, device="cuda",
+                    timeout_s: float = DEFAULT_TIMEOUT_S):
+    """Join the default process group as ``rank`` of ``world_size``: NCCL on
+    ``cuda`` (the rank's card is ``LOCAL_RANK``, else the rank modulo the
+    card count, and becomes the current device), gloo on ``cpu``. Returns
+    the group (``dist.group.WORLD``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_slab_group(device='cuda'): torch sees no CUDA device")
+        if not dist.is_nccl_available():
+            raise RuntimeError("init_slab_group(device='cuda') needs NCCL, which this "
+                               "torch lacks; a cuda slab solve does not run on gloo")
+        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        if not dist.is_gloo_available():
+            raise RuntimeError("init_slab_group(device='cpu') needs gloo, which this "
+                               "torch lacks")
+        backend = "gloo"
+    else:
+        raise ValueError(f"slab groups run on 'cuda' or 'cpu', got {device!r}")
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    return dist.group.WORLD
+
+
+def _rank_main(rank: int, fn: Callable, nprocs: int, args: Sequence, init: str,
+               out_dir: str, timeout_s: float) -> None:
+    torch.set_num_threads(1)
+    init_slab_group(rank, nprocs, init, "cpu", timeout_s=timeout_s)
+    try:
+        out = fn(rank, nprocs, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, nprocs: int, args: Sequence = (),
+              timeout_s: float = DEFAULT_TIMEOUT_S) -> List:
+    """Run ``fn(rank, nprocs, *args)`` on ``nprocs`` gloo ranks, each a fresh
+    process (``spawn``) with one torch thread, joined through a ``file://``
+    store in a temporary directory; return the ranks' return
+    values in rank order. ``fn`` must be importable by name (defined at a
+    module's top level) and return something ``torch.save`` takes. Raises
+    if a rank raises, and kills every rank and raises ``TimeoutError`` after
+    ``timeout_s`` seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, nprocs, tuple(args), init, tmp, timeout_s),
+            nprocs=nprocs, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{nprocs} ranks still running after {timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(nprocs)]

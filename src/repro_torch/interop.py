@@ -5,6 +5,8 @@ warm start of a served subject), the interpolation plans and the
 ``GradientState`` of a Newton step. These functions take that state as numpy
 arrays (or anything ``numpy.asarray`` reads) and return the port's tensors
 and dataclasses, so a test can feed one package's state to the other.
+``slab_split``/``slab_join`` cut a global array into the x1 slabs of the
+slab-parallel solve and join them back.
 """
 
 from __future__ import annotations
@@ -19,6 +21,22 @@ from .core import gradient as _grad
 from .core import interp as _interp
 
 _PLAN_FIELDS = ("plan_fwd", "plan_adj")
+
+
+def slab_split(a, rank: int, nshards: int) -> np.ndarray:
+    """Rank ``rank``'s x1 slab (axis -3) of a global array cut into
+    ``nshards`` equal slabs, as the slab-parallel solve cuts its fields."""
+    a = np.asarray(a)
+    n1 = a.shape[-3]
+    if n1 % nshards:
+        raise ValueError(f"x1 extent {n1} not divisible by {nshards} slabs")
+    n_loc = n1 // nshards
+    return a[..., rank * n_loc:(rank + 1) * n_loc, :, :]
+
+
+def slab_join(slabs) -> np.ndarray:
+    """The global array of per-rank x1 slabs given in rank order."""
+    return np.concatenate([np.asarray(s) for s in slabs], axis=-3)
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:

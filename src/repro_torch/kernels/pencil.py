@@ -1,9 +1,11 @@
-"""Periodic 1D stencil along one axis of a stack of 3D fields (kernel K1).
+"""1D stencils along one axis of a stack of 3D fields: periodic (kernel K1)
+and valid-mode on a halo-extended axis (kernel K5).
 
-Port of ``repro.kernels.pencil.stencil_pencil``. ``stencil_axis`` dispatches
-on the device of its input: a CPU tensor takes the plain ``torch.roll``
-version below, a CUDA tensor launches ``csrc/pencil.cu`` (or raises). There
-is no fallback from one to the other.
+Ports of ``repro.kernels.pencil.stencil_pencil`` and
+``stencil_pencil_valid``. ``stencil_axis`` and ``stencil_valid`` dispatch on
+the device of their input: a CPU tensor takes the plain version beside the
+wrapper, a CUDA tensor launches ``csrc/pencil.cu`` (or raises). There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p),
+    "stencil_valid_f32": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p),
 }
 
 
@@ -47,26 +53,34 @@ def stencil_axis_plain(f: torch.Tensor, axis: int, taps: Sequence[float],
     return acc * scale
 
 
-def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
-                 symmetric: bool, scale: float = 1.0) -> torch.Tensor:
-    """Periodic stencil along ``axis`` (0..2 of the trailing three
-    dimensions) of ``f``: ``(N1, N2, N3)`` or a stack ``(..., N1, N2, N3)``."""
+def _check_field(f: torch.Tensor, axis: int, taps: Sequence[float], what: str) -> None:
     if f.dim() < 3:
         raise ValueError(f"expected (..., N1, N2, N3), got {tuple(f.shape)}")
     if axis not in (0, 1, 2):
         raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
     if not 1 <= len(taps) <= MAX_TAPS:
-        raise ValueError(f"stencil_axis takes 1..{MAX_TAPS} taps, got {len(taps)}")
+        raise ValueError(f"{what} takes 1..{MAX_TAPS} taps, got {len(taps)}")
+
+
+def _check_cuda_field(f: torch.Tensor, what: str) -> None:
+    if f.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {f.device}")
+    if f.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes float32, got {f.dtype}")
+    if not f.is_contiguous():
+        raise ValueError(f"{what} kernel needs a contiguous tensor")
+
+
+def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
+                 symmetric: bool, scale: float = 1.0) -> torch.Tensor:
+    """Periodic stencil along ``axis`` (0..2 of the trailing three
+    dimensions) of ``f``: ``(N1, N2, N3)`` or a stack ``(..., N1, N2, N3)``."""
+    _check_field(f, axis, taps, "stencil_axis")
     name = "stencil_axis:" + ("prefilter" if symmetric else "fd8")
     if f.device.type == "cpu":
         counts.bump("plain:" + name)
         return stencil_axis_plain(f, axis, taps, symmetric, scale)
-    if f.device.type != "cuda":
-        raise ValueError(f"stencil_axis runs on cpu or cuda tensors, got {f.device}")
-    if f.dtype != torch.float32:
-        raise TypeError(f"stencil_axis kernel takes float32, got {f.dtype}")
-    if not f.is_contiguous():
-        raise ValueError("stencil_axis kernel needs a contiguous tensor")
+    _check_cuda_field(f, "stencil_axis")
     n1, n2, n3 = f.shape[-3:]
     batch = f.numel() // max(n1 * n2 * n3, 1)
     out = torch.empty_like(f)
@@ -78,4 +92,47 @@ def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
         torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(rc, "stencil_axis")
     counts.bump(name)
+    return out
+
+
+def stencil_valid_plain(f: torch.Tensor, axis: int, taps: Sequence[float],
+                        scale: float = 1.0) -> torch.Tensor:
+    """The kernel's arithmetic by slicing: taps (c1, ..., cR) along ``axis``
+    (of the trailing three dimensions) of a field with n + 2R rows there,
+    out = scale * sum_k c_k (f[i+R+k] - f[i+R-k]) with n rows, no wrap."""
+    d = f.dim() - 3 + axis
+    r = len(taps)
+    n = f.shape[d] - 2 * r
+    acc = torch.zeros_like(f.narrow(d, r, n))
+    for k, c in enumerate(taps, start=1):
+        acc = acc + c * (f.narrow(d, r + k, n) - f.narrow(d, r - k, n))
+    return acc * scale
+
+
+def stencil_valid(f: torch.Tensor, axis: int, taps: Sequence[float],
+                  scale: float = 1.0) -> torch.Tensor:
+    """Valid-mode antisymmetric stencil (kernel K5) along ``axis`` (0..2 of
+    the trailing three dimensions) of a halo-extended field ``(..., N1, N2,
+    N3)``: R = ``len(taps)`` rows of halo on each side of that axis are read
+    and dropped, so the output is 2R rows shorter there."""
+    _check_field(f, axis, taps, "stencil_valid")
+    if f.shape[f.dim() - 3 + axis] <= 2 * len(taps):
+        raise ValueError(f"axis {axis} of {tuple(f.shape)} is too short for "
+                         f"radius {len(taps)}")
+    if f.device.type == "cpu":
+        counts.bump("plain:stencil_valid:fd8")
+        return stencil_valid_plain(f, axis, taps, scale)
+    _check_cuda_field(f, "stencil_valid")
+    n1, n2, n3 = f.shape[-3:]
+    batch = f.numel() // (n1 * n2 * n3)
+    out_shape = list(f.shape)
+    out_shape[f.dim() - 3 + axis] -= 2 * len(taps)
+    out = torch.empty(out_shape, dtype=f.dtype, device=f.device)
+    lib = _build.library("pencil", _SIGNATURES)
+    tap_arr = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    rc = lib.stencil_valid_f32(
+        f.data_ptr(), out.data_ptr(), batch, n1, n2, n3, axis, tap_arr,
+        len(taps), float(scale), torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(rc, "stencil_valid")
+    counts.bump("stencil_valid:fd8")
     return out

@@ -8,8 +8,8 @@ file does not import):
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: K1 rtol 1e-5 / atol 1e-4; K2, K3 and K4 (fp32 and bf16 weights)
-1e-5 * max(|plain|, 1). The bf16 weights of kernel and plain version are
+Tolerances: K1 and K5 rtol 1e-5 / atol 1e-4; K2, K3 and K4 (fp32 and bf16
+weights) 1e-5 * max(|plain|, 1). The bf16 weights of kernel and plain version are
 bit-equal (``kernels/interp3d.py``), so the bound is fp32 accumulation noise.
 """
 
@@ -17,10 +17,12 @@ import math
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import interp as I
 from repro_torch.core import registration as R
 from repro_torch.data import synthetic as S
+from repro_torch.distributed import group as G
 from repro_torch.kernels import counts
 from repro_torch.kernels import fd8 as FD8
 from repro_torch.kernels import interp3d as K
@@ -67,6 +69,20 @@ def test_k1_matches_plain(cuda, axis):
         got = P.stencil_axis(f, axis, taps, sym, sc)
         torch.testing.assert_close(got, P.stencil_axis_plain(f, axis, taps, sym, sc),
                                    rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_k5_matches_plain(cuda, axis):
+    """Valid-mode stencil on a stack whose ``axis`` carries 2 x 4 halo rows,
+    and on a slab thinner than the radius."""
+    for n_loc in (2, 16):
+        shape = list(SHAPE)
+        shape[axis] = n_loc + 8
+        f = _randn((3,) + tuple(shape), 9, cuda)
+        got = P.stencil_valid(f, axis, FD8.FD8_COEFFS, 0.7)
+        ref = P.stencil_valid_plain(f, axis, FD8.FD8_COEFFS, 0.7)
+        assert got.shape == ref.shape and got.shape[1 + axis] == n_loc
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
@@ -167,3 +183,25 @@ def test_planfree_registers_on_card_as_on_cpu(cuda):
             assert ([h["pcg_iters"] for h in got.history]
                     == [h["pcg_iters"] for h in ref.history])
             assert float((got.v.cpu() - ref.v).abs().max()) <= 1e-4 * float(ref.v.abs().max())
+
+
+def test_register_sharded_on_a_one_rank_nccl_group_matches_register(cuda, tmp_path):
+    """The slab path on the card: one NCCL rank (all-gather exchanges, K5 on
+    the halo-extended slab, plans on the extended frame) against the
+    single-device solve on the same card."""
+    pair = S.make_pair(0, (32, 32, 32), device=cuda)
+    ref = R.register(pair.m0, pair.m1, use_fused_matvec=True, device=cuda)
+    G.init_slab_group(0, 1, f"file://{tmp_path}/store", "cuda")
+    try:
+        counts.reset()
+        got = R.register_sharded(pair.m0, pair.m1, use_fused_matvec=True, device=cuda)
+        torch.cuda.synchronize()
+        launched = counts.snapshot()
+    finally:
+        dist.destroy_process_group()
+    assert got.iters == ref.iters
+    assert [h["pcg_iters"] for h in got.history] == [h["pcg_iters"] for h in ref.history]
+    assert float((got.v - ref.v).abs().max()) <= 1e-4 * float(ref.v.abs().max())
+    assert launched.get("stencil_valid:fd8", 0) > 0
+    assert launched.get("apply_plan_fused:inc_state", 0) > 0
+    assert not [k for k in launched if k.startswith("plain:")]

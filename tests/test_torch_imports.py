@@ -10,6 +10,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import interop
 from repro_torch.core import interp as I
@@ -17,6 +18,7 @@ from repro_torch.core import measures as M
 from repro_torch.core import registration as R
 from repro_torch.core import semilag as SL
 from repro_torch.data import synthetic as S
+from repro_torch.distributed import group as G
 from repro_torch.kernels import counts
 from repro_torch.kernels import interp3d as K
 from repro_torch.kernels import pencil as P
@@ -44,6 +46,23 @@ def _bad_imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not _bad_imports(path)
+
+
+def test_import_scan_covers_the_slab_package():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("__init__", "claire_dist", "compression", "group", "halo"):
+        assert f"src/repro_torch/distributed/{name}.py" in scanned
+
+
+def test_cuda_slab_group_without_nccl_raises(monkeypatch, tmp_path):
+    """No quiet gloo in place of NCCL, and no group on another device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs NCCL"):
+        G.init_slab_group(0, 1, f"file://{tmp_path}/store", "cuda")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        G.init_slab_group(0, 1, f"file://{tmp_path}/store", "meta")
+    assert not dist.is_initialized()
 
 
 def test_import_scan_catches_jax(tmp_path):
@@ -90,8 +109,13 @@ def test_unported_paths_raise_not_implemented():
     for name in ("ncc", "ngf"):
         with pytest.raises(NotImplementedError, match="A12"):
             M.resolve(name)
-    with pytest.raises(NotImplementedError, match="A18"):
-        R.register_sharded(None, None, mesh=None)
+    # The slab solve (A18) runs; its ensemble x slab mode waits for the
+    # batched driver, and without an initialised group it raises.
+    m4 = np.zeros((2, 8, 8, 8), np.float32)
+    with pytest.raises(NotImplementedError, match="A14"):
+        R.register_sharded(m4, m4, device="cpu")
+    with pytest.raises(RuntimeError, match="initialised torch.distributed group"):
+        R.register_sharded(m4[0], m4[0], device="cpu")
     f = torch.zeros((8, 8, 8))
     q = torch.zeros((3, 8, 8, 8))
     assert torch.equal(SL.sl_step(f, q), f)
