@@ -16,10 +16,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
               footpoints of a smooth velocity, fp32 and bf16 weights; K3 with
               both epilogues, fp32 and bf16; K4 for each basis, fp32 and bf16
               weights, K=1 and K=2, at those footpoints and at the same
-              shifted by -3).
+              shifted by -3; K6 flash attention at (a) BH 128, S 2048, hd 64,
+              bf16, both flags; (b) BH 16, S 1000, hd 64, fp32, both flags;
+              (c) BH 28, S 1024, hd 128, bf16, causal; (d) BH 16, S 16384,
+              hd 64, bf16, causal, the plain version per head; and at the
+              prefill shape of every LM path below, B * n_heads x prompt x
+              head_dim, causal). Two faulty plain versions at (a), P rounded
+              to bf16 before P.V and the last key tile dropped, must fail
+              K6's bf16 check, so that the check can see such faults.
 4. reference: 16^3 registrations on the card (fused plan path; plan-free)
               against the same registrations through the plain versions on
-              the CPU: equal Newton and PCG counts.
+              the CPU: equal Newton and PCG counts; then (reference_lm) the
+              smoke configs of qwen1.5-0.5b and smollm-135m with K6's head
+              size 64, fp32 and bf16, the same seeded weights on the card and
+              on the CPU: prefill and decode logits within the CPU tests'
+              tolerances, equal greedy ids in fp32.
 5. matvec   : the plan-path and the fused (K3) Gauss-Newton matvec on one
               size^3 GradientState, <= 1e-5 * max(scale, 1).
 6-11. paths : ``register`` / ``register_multires`` / ``warp_labels`` of the
@@ -42,12 +53,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              fd8-cubic, fp32, fused matvec, halo 6 (K5, K1,
                              K2, K3 on halo-extended slabs); the solve's
                              Newton and PCG counts, v within 1e-4 * max|v|
+              serve_lm:qwen1.5-0.5b  ``repro_torch.launch.serve_lm.serve`` at
+                             full width (24 layers, MHA, random seeded
+                             weights, bf16): 8 requests x 2048-token prompt
+                             + 64 generated; K6 once per layer
+              serve_lm:smollm-135m   30 layers, GQA (K/V repeated), 8 x 2000
+                             (a ragged tail) + 48
 12. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
-              computes the same function, where there is one.
+              computes the same function, where there is one (K6: SDPA).
 13. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
-              and the device's idle share of the unprofiled wall time.
+              and the device's idle share of the unprofiled wall time; then
+              the qwen1.5-0.5b prefill (K6, matmuls, elementwise) and its
+              decode loop (idle share).
 
 Then the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -58,8 +77,9 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
-import json
 import contextlib
+import dataclasses
+import json
 import math
 import pathlib
 import socket
@@ -70,9 +90,11 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 non-tensor flop/s.
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor flop/s,
+#: bf16 dense tensor-core flop/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
 PLAN_REL = 1e-5            # K2/K3/K4: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
@@ -80,6 +102,16 @@ MATVEC_REL = 1e-5          # fused vs plan matvec, as tests/test_fused_matvec.py
 REF_V_REL = 1e-4           # 16^3 solve, card vs CPU: max|dv| <= 1e-4 * max|v|
 SLAB_V_REL = 1e-4          # slab vs single-device solve: max|dv| <= 1e-4 * max|v|
 K5_REL = 1e-5              # K5: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
+#: K6 vs plain, (rtol, atol) per dtype. fp32: tests/test_flashattn.py's.
+#: bf16: kernel and plain version both accumulate in fp32 and round once, so
+#: they differ by at most one ulp of the bf16 output, which is at most
+#: 2^-7 |x| (rtol 8e-3), plus the fp32 order noise of outputs near 0 (atol);
+#: and only where the fp32 values straddle a rounding boundary, so at most
+#: K6_BF16_DIFFER of the elements may differ at all.
+K6_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (8e-3, 1e-4)}
+K6_BF16_DIFFER = 0.05
+LM_FP32_REL = 1e-4         # fp32 logits, card vs CPU: <= 1e-4 * max|logits|
+LM_BF16_ATOL = 0.02        # bf16 logits, card vs CPU (tests/test_torch_lm.py)
 TIMING_REPS, PLAIN_REPS = 20, 2
 
 _PENCIL = ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:135")
@@ -87,6 +119,7 @@ _K5 = ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:81")
 _K2 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:247")
 _K3 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:339")
 _K4 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:150")
+_K6 = ("src/repro_torch/csrc/flashattn.cu", "src/repro/kernels/flashattn/flashattn.py:72")
 K4_BASES = ("linear", "cubic_bspline", "cubic_lagrange")
 
 #: kernel (launch-count key) -> (source, Pallas kernel it replaces).
@@ -101,6 +134,7 @@ KERNELS = {
     "apply_plan_fused:inc_adjoint:bf16": _K3,
     **{f"interp3d:{b}{w}": _K4 for b in K4_BASES for w in ("", ":bf16")},
     "stencil_valid:fd8": _K5,
+    "flash_attention": _K6,
 }
 
 _K1_KEYS = ["stencil_axis:fd8", "stencil_axis:prefilter"]
@@ -130,6 +164,22 @@ VARIANT_PATHS = {
                                       mixed_precision=True),
                                  ["interp3d:linear:bf16"]),
 }
+#: K6 cases: label -> (BH, S, hd, dtype, causal flags); (a) is the
+#: qwen1.5-0.5b serving prefill, 8 requests x 16 heads x 2048 tokens. Phase
+#: kernels adds the prefill shape of every path of LM_PATHS.
+K6_CASES = {
+    "a": (128, 2048, 64, "bfloat16", (False, True)),
+    "b": (16, 1000, 64, "float32", (False, True)),
+    "c": (28, 1024, 128, "bfloat16", (True,)),
+    "d": (16, 16384, 64, "bfloat16", (True,)),
+}
+#: past this many score elements the K6 check runs the plain version per head
+PLAIN_SCORES_MAX = 2 ** 31
+#: LM serving paths: label -> (arch, requests, prompt tokens, generated).
+LM_PATHS = {
+    "serve_lm:qwen1.5-0.5b": ("qwen1.5-0.5b", 8, 2048, 64),
+    "serve_lm:smollm-135m": ("smollm-135m", 8, 2000, 48),
+}
 #: K4 operations per voxel besides the taps: floor, fraction and weights on
 #: three axes (the B-spline's ~22 per axis; 3 for linear).
 K4_WEIGHT_OPS = {"linear": 9, "cubic_bspline": 66, "cubic_lagrange": 60}
@@ -143,6 +193,40 @@ def emit(phase: str, **fields) -> None:
 
 def max_err(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def k6_close(got, ref, dt: str):
+    """K6's check against its plain version at ``K6_TOL``: (ok, max |got -
+    ref|, share of the elements that differ)."""
+    rtol, atol = K6_TOL[dt]
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    differ = float((d > 0).float().mean())
+    ok = bool((d <= atol + rtol * ref.abs()).all())
+    if dt == "bfloat16":
+        ok = ok and differ <= K6_BF16_DIFFER
+    return ok, float(d.max()), differ
+
+
+def k6_faulty(q, k, v, causal: bool, fault: str):
+    """K6's plain version with one fault, to show that ``k6_close`` sees it:
+    ``p_bf16`` rounds P to bf16 before P.V; ``drop_tile`` leaves out the last
+    64-row key tile."""
+    import torch
+
+    s_len, hd = q.shape[-2:]
+    s = (q.float() * (1.0 / math.sqrt(hd))) @ k.float().transpose(-1, -2)
+    pos = torch.arange(s_len, device=q.device)
+    if causal:
+        s = s.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    if fault == "drop_tile":
+        s[..., (s_len - 1) // 64 * 64:] = -1e30
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if fault == "p_bf16":
+        p = p.bfloat16().float()
+    return ((p @ v.float()) / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
 def timed(fn, reps: int) -> float:
@@ -162,9 +246,9 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -202,16 +286,25 @@ def circular_conv(taps, symmetric: bool, scale: float, axis: int, device):
     return conv.to(device).requires_grad_(False)
 
 
+def attention_flops(bh: int, s: int, hd: int, causal: bool) -> float:
+    """Flops this call's data needs: 4 hd per (query, key) pair that is not
+    masked (2 hd for q k^T, 2 hd for p v)."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return 4.0 * hd * bh * pairs
+
+
 def _kernel_group(key: str) -> str:
     for group, marks in (("NCCL", ("nccl",)),
+                         ("K6 flash_attention", ("flash_attention",)),
                          ("K1 stencil_axis", ("stencil_axis",)),
                          ("K5 stencil_valid", ("stencil_valid",)),
                          ("K3 apply_plan_fused", ("apply_plan_fused",)),
                          ("K2 apply_plan", ("apply_plan_kernel",)),
                          ("K4 interp3d", ("interp3d_kernel",)),
                          ("cuFFT", ("fft",)),
-                         ("reductions", ("reduce",)),
+                         ("reductions", ("reduce", "softmax")),
                          ("cuBLAS gemv", ("gemv",)),
+                         ("cuBLAS gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                          ("elementwise / copies", ("elementwise", "copy", "Memcpy",
                                                    "Memset", "fill", "cat"))):
         if any(m in key for m in marks):
@@ -253,6 +346,7 @@ def profile_solve(label: str, solve, unprofiled_wall_s: float) -> None:
          unprofiled_wall_s=unprofiled_wall_s,
          idle_share=1.0 - device_ms / 1e3 / unprofiled_wall_s if device_ms else None,
          groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+         group_shares={g: ms / device_ms for g, ms in groups.items()} if device_ms else {},
          device_ranges=ranges,
          top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in top[:12]])
 
@@ -329,6 +423,8 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch import device as D
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import gradient as GR
     from repro_torch.core import hessian as HS
     from repro_torch.core import interp as I
@@ -338,9 +434,12 @@ def main(argv=None) -> int:
     from repro_torch.data import synthetic as S
     from repro_torch.kernels import _build, counts
     from repro_torch.kernels import fd8 as FD8
+    from repro_torch.kernels import flashattn as FA
     from repro_torch.kernels import interp3d as K
     from repro_torch.kernels import pencil as P
     from repro_torch.kernels import prefilter as PF
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
 
     dev = D.resolve("cuda")
     n = args.size
@@ -439,11 +538,45 @@ def main(argv=None) -> int:
                                f"interp3d {basis}{sfx} K={k} at {qname}",
                                K.interp3d(coef, q, basis, wd),
                                K.interp3d_plain(coef, q, basis, wd))
+    # K6 at its four shapes and at each LM path's own prefill shape; the
+    # plain version per head where the whole score tensor would pass
+    # PLAIN_SCORES_MAX elements (case d)
+    k6_cases = dict(K6_CASES)
+    for label, (arch, b, p_len, _) in LM_PATHS.items():
+        cfg = ARCHS[arch]
+        k6_cases[label] = (b * cfg.n_heads, p_len, cfg.head_dim, cfg.compute_dtype, (True,))
+    cuda_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    k6_inputs = {}
+    for label, (bh, s_len, hd, dt, flags) in k6_cases.items():
+        qkv = tuple(torch.randn((bh, s_len, hd), generator=cuda_gen, device=dev)
+                    .to(getattr(torch, dt)) for _ in range(3))
+        k6_inputs[label] = qkv
+        for causal in flags:
+            got = FA.flash_attention(*qkv, causal=causal)
+            if bh * s_len * s_len > PLAIN_SCORES_MAX:
+                ref = torch.cat([FA.flash_attention_plain(*(t[h:h + 1] for t in qkv), causal)
+                                 for h in range(bh)])
+            else:
+                ref = FA.flash_attention_plain(*qkv, causal)
+            ok, err, differ = k6_close(got, ref, dt)
+            checks.append(dict(case=f"flash_attention ({label}) {[bh, s_len, hd]} {dt} "
+                                    f"causal={causal}", max_abs_err=err, differ_share=differ,
+                               tol=K6_TOL[dt], ok=ok))
+            errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
+            del got, ref
+    # the bf16 check must fail faulty plain versions at (a)
+    qkv = k6_inputs["a"]
+    for fault, causal in (("p_bf16", False), ("p_bf16", True), ("drop_tile", False)):
+        seen, err, differ = k6_close(k6_faulty(*qkv, causal, fault),
+                                     FA.flash_attention_plain(*qkv, causal), "bfloat16")
+        checks.append(dict(case=f"flash_attention (a) control {fault} causal={causal}: "
+                                "the check must fail it", max_abs_err=err,
+                           differ_share=differ, ok=not seen))
     torch.cuda.synchronize()
     ok3 = all(c["ok"] for c in checks)
     emit("kernels", size=n, ok=ok3, checks=checks,
          tolerances=dict(k1_rtol=K1_RTOL, k1_atol=K1_ATOL, plan_rel=PLAN_REL,
-                         k5_rel=K5_REL))
+                         k5_rel=K5_REL, k6=K6_TOL, k6_bf16_differ=K6_BF16_DIFFER))
     if not ok3:
         return 1
 
@@ -465,6 +598,46 @@ def main(argv=None) -> int:
             tol=REF_V_REL * vmax, mismatch_rel=[got.mismatch_rel, ref.mismatch_rel]))
     ok4 = all(r["ok"] for r in refs)
     emit("reference", ok=ok4, runs=refs)
+    if not ok4:
+        return 1
+
+    # 4b. reference_lm: smoke LM configs with K6's head size 64, the same
+    # seeded weights on the card and on the CPU (plain versions there)
+    lm_refs = []
+    for arch in ("qwen1.5-0.5b", "smollm-135m"):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(ARCHS[arch].smoke(), head_dim=64, param_dtype=dt,
+                                      compute_dtype=dt)
+            cpu_card = [build_model(cfg, d).init(torch.Generator().manual_seed(args.seed))
+                        for d in ("cpu", dev)]
+            tok = torch.randint(0, cfg.vocab_size, (3, 100),
+                                generator=torch.Generator().manual_seed(args.seed + 1))
+            runs = [serve_lm.serve(cpu_card[0], tok, 8)]
+            counts.reset()
+            runs.append(serve_lm.serve(cpu_card[1], tok, 8))
+            launched = counts.snapshot()
+            pairs = [(runs[1].prefill_logits, runs[0].prefill_logits)]
+            caches = [m.make_cache(3, 8) for m in cpu_card]
+            for i in range(4):
+                ref_l, got_l = (m.decode_step(c, tok[:, i:i + 1], i)[0]
+                                for m, c in zip(cpu_card, caches))
+                pairs.append((got_l, ref_l))
+            errs_l = [max_err(g.float().cpu(), r.float()) for g, r in pairs]
+            ids_equal = torch.equal(runs[1].ids.cpu(), runs[0].ids)
+            if dt == "float32":
+                tols = [LM_FP32_REL * float(r.float().abs().max()) for _, r in pairs]
+                ok = ids_equal and all(e <= t for e, t in zip(errs_l, tols))
+            else:
+                tols = [LM_BF16_ATOL] * len(pairs)
+                ok = all(e <= t for e, t in zip(errs_l, tols))
+            ok = ok and launched.get("flash_attention") == cfg.n_layers
+            lm_refs.append(dict(
+                arch=arch, dtype=dt, head_dim=64, ok=ok, ids_equal=ids_equal,
+                id_agreement=float((runs[1].ids.cpu() == runs[0].ids).float().mean()),
+                max_logit_err=dict(prefill=errs_l[0], decode=errs_l[1:]), tol=tols[0],
+                launches=launched))
+    ok4 = all(r["ok"] for r in lm_refs)
+    emit("reference_lm", ok=ok4, runs=lm_refs)
     if not ok4:
         return 1
 
@@ -597,6 +770,40 @@ def main(argv=None) -> int:
         return 1
     del res
 
+    # the LM serving paths at full width, random seeded weights
+    lm_walls = {}
+    for label, (arch, b, p_len, g) in LM_PATHS.items():
+        cfg = ARCHS[arch]
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev).init(torch.Generator().manual_seed(args.seed))
+        init_s = time.perf_counter() - t0
+        tokens = model.make_batch(torch.Generator().manual_seed(args.seed + 1),
+                                  ShapeConfig("serve", p_len, b, "prefill"))["batch"]["tokens"]
+        serve_lm.serve(model, tokens[:, :128], 2)  # warm-up (cuBLAS), not counted
+        res, fields = drive(label, ["flash_attention"],
+                            lambda: serve_lm.serve(model, tokens, g))
+        lg = res.prefill_logits
+        k6 = fields["launches"].get("flash_attention", 0)
+        ok = (k6 == cfg.n_layers and not fields["missing"] and not fields["plain_runs"]
+              and tuple(res.ids.shape) == (b, g + 1)
+              and tuple(lg.shape) == (b, 1, cfg.vocab_padded)
+              and bool(torch.isfinite(lg.float()).all())
+              and 0 <= int(res.ids.min()) and int(res.ids.max()) < cfg.vocab_padded)
+        wall = fields.pop("wall_s")
+        emit(label, ok=ok, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+             vocab_padded=cfg.vocab_padded, dtype=cfg.compute_dtype, requests=b,
+             prompt_len=p_len, gen_len=g, init_s=init_s, serve_wall_s=wall,
+             prefill_s=res.prefill_s, prefill_tok_s=b * p_len / res.prefill_s,
+             decode_s=res.decode_s, decode_tok_s=b * g / res.decode_s,
+             k6_launches_per_prefill=k6, ids_first_request=res.ids[0].tolist(), **fields)
+        if not ok:
+            return 1
+        lm_walls[label] = (res.prefill_s, res.decode_s)
+        if arch == "qwen1.5-0.5b":
+            lm_keep = (model, tokens, g)
+        del model, res
+
     def path_count(key):
         return sum(snap.get(key, 0) for snap in path_launches.values())
 
@@ -695,6 +902,29 @@ def main(argv=None) -> int:
             library_ms=lib_ms, library_max_abs_dev=lib_dev,
             bound=bound_ms(nbytes(x) + 4 * out_numel, 13 * out_numel), shape=list(x.shape))
     rows["stencil_valid:fd8"] = dict(k5_rows["1 rank"], stack=k5_rows["4 slabs, 5 fields"])
+
+    # K6: shape (a) causal, the qwen1.5-0.5b prefill; the other cases beside
+    k6_rows = {}
+    for label, (bh, s_len, hd, dt, flags) in k6_cases.items():
+        qkv = k6_inputs[label]
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
+        for causal in flags:
+            k6_rows[f"{label} causal={causal}"] = dict(
+                ms=timed(lambda qkv=qkv, c=causal: FA.flash_attention(*qkv, causal=c), reps),
+                bound=bound_ms(4 * nbytes(qkv[0]), attention_flops(bh, s_len, hd, causal), peak),
+                shape=[bh, s_len, hd], dtype=dt)
+    qa, ka, va = k6_inputs["a"]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qa[None], ka[None], va[None], is_causal=True)[0]
+
+    rows["flash_attention"] = dict(
+        k6_rows.pop("a causal=True"),
+        plain_ms=timed(lambda: FA.flash_attention_plain(qa, ka, va, True), plain_reps),
+        library_ms=timed(sdpa, reps),
+        library_max_abs_dev=max_err(sdpa().float(), FA.flash_attention(qa, ka, va, True).float()),
+        causal=True, others=k6_rows)
     for key, row in rows.items():
         row["launches_on_paths"] = path_count(key)
     emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows)
@@ -708,6 +938,23 @@ def main(argv=None) -> int:
         profile_solve("solve_slab", lambda: R.register_sharded(pair.m0, pair.m1, device=dev,
                                                                **SLAB_KW),
                       walls["solve_slab"])
+    # the qwen1.5-0.5b prefill by kernel group, and its decode loop's idle share
+    model, tokens, g = lm_keep
+    prefill_s, decode_s = lm_walls["serve_lm:qwen1.5-0.5b"]
+    profile_solve("serve_lm:qwen1.5-0.5b prefill",
+                  lambda: model.prefill({"tokens": tokens}), prefill_s)
+    b, p_len = tokens.shape
+    cache = model.make_cache(b, p_len + g)
+    first = torch.zeros((b, 1), dtype=torch.long, device=dev)
+
+    def decode_loop():
+        tok = first
+        for i in range(g):
+            logits, _ = model.decode_step(cache, tok, p_len + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+    profile_solve("serve_lm:qwen1.5-0.5b decode", decode_loop, decode_s)
+    del model, cache
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

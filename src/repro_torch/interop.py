@@ -6,12 +6,13 @@ warm start of a served subject), the interpolation plans and the
 arrays (or anything ``numpy.asarray`` reads) and return the port's tensors
 and dataclasses, so a test can feed one package's state to the other.
 ``slab_split``/``slab_join`` cut a global array into the x1 slabs of the
-slab-parallel solve and join them back.
+slab-parallel solve and join them back. ``lm_params_from_jax`` carries an LM's
+params pytree across as the state dict of ``repro_torch.models.Model``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -95,3 +96,28 @@ def gradient_state_from_numpy(state: Mapping, device="cuda") -> _grad.GradientSt
     for f in _PLAN_FIELDS:
         kwargs[f] = _plan_from(state.get(f), device)
     return _grad.GradientState(**kwargs)
+
+
+def lm_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The state dict of ``repro_torch.models.Model(cfg)`` (CPU tensors) from
+    the JAX ``Model.init`` params pytree, leaves as numpy arrays (bfloat16
+    ones typed by ``ml_dtypes``). Dense models only.
+
+    The leaves become tensors as they are; the layout (JAX's segment leaves
+    stacked over their repeats, one state-dict entry per layer in the port)
+    is ``models.api.state_dict_from_tree``'s. Dense weights keep JAX's
+    ``(d_in, d_out)`` layout. The embedding table has ``cfg.vocab_padded``
+    rows (e.g. Qwen1.5's 151 936 tokens padded to 152 064); ``unembed``
+    exists only without tied embeddings, QKV biases only with
+    ``cfg.qkv_bias``.
+    """
+    # imported here: the models package loads the K6 wrapper, which the
+    # registration side of this module does not need
+    from .models import api
+
+    def tensors(tree):
+        if isinstance(tree, Mapping):
+            return {k: tensors(v) for k, v in tree.items()}
+        return _weights_from_numpy(tree, "cpu")
+
+    return api.state_dict_from_tree(tensors(params), cfg)

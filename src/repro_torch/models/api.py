@@ -1,0 +1,256 @@
+"""Model facade: one ``nn.Module`` per architecture config with init,
+prefill and decode entry points.
+
+Port of ``repro.models.api`` for the dense family. The JAX ``Model`` is
+stateless and takes its params pytree in every call; here the params live
+in the module as (frozen) parameters, in the JAX tree's layout
+(``embed.table``, ``final_norm.scale``, ``decoder.seg0.sub0.<layer>.mixer.wq.w``,
+...; ``unembed.table`` when the embeddings are not tied). A model is built
+with storage only (on the ``meta`` device, like JAX's ``abstract_params``);
+``init(generator)`` draws the weights with JAX's scales, and
+``load_params(state)`` takes a state dict; :func:`state_dict_from_tree` makes
+one from a tree in the JAX layout (``interop.lm_params_from_jax``).
+
+Batch layouts (int64 tokens): prefill {"tokens": (B,S)}; decode tokens
+(B,1) + cache + int position. Inference runs under ``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from .. import device as _device
+from . import layers as L
+from . import transformer as T
+
+Params = Dict[str, Any]
+
+#: families with a port; the others raise, naming the ROADMAP item.
+PORTED_FAMILIES = ("dense",)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one model input (JAX's ``ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _register(module: nn.Module, tree) -> None:
+    """Register a nested dict/list of tensors on ``module``: dicts become
+    submodules, lists ``nn.ModuleList``s, tensors frozen parameters."""
+    for name, val in tree.items():
+        if isinstance(val, torch.Tensor):
+            module.register_parameter(name, nn.Parameter(val, requires_grad=False))
+        elif isinstance(val, list):
+            lst = nn.ModuleList()
+            for item in val:
+                child = nn.Module()
+                _register(child, item)
+                lst.append(child)
+            module.add_module(name, lst)
+        else:
+            child = nn.Module()
+            _register(child, val)
+            module.add_module(name, child)
+
+
+def _tree(module: nn.Module):
+    """The nested dict/list of tensors registered by :func:`_register`."""
+    if isinstance(module, nn.ModuleList):
+        return [_tree(m) for m in module]
+    out = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        out[name] = _tree(child)
+    return out
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    out = {}
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, torch.Tensor):
+            out[key] = v
+        else:
+            out.update(_flatten(v, key + "."))
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The state dict of ``Model(cfg)`` from a params tree of tensors in the
+    JAX layout, where each decoder segment's leaves are stacked over its
+    repeats (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep, d_in,
+    d_out)``); the model keeps one entry per layer
+    (``decoder.seg0.sub0.<r>.mixer.wq.w``)."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet "
+                                  "(ROADMAP A20)")
+    if ("unembed" in tree) == bool(cfg.tie_embeddings):
+        raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the params "
+                         f"{'have' if 'unembed' in tree else 'lack'} an unembed table")
+    rows = tree["embed"]["table"].shape[0]
+    if rows != cfg.vocab_padded:
+        raise ValueError(f"embedding has {rows} rows, expected vocab_padded "
+                         f"{cfg.vocab_padded} (vocab {cfg.vocab_size})")
+    decoder = {}
+    for si, (n_rep, _) in enumerate(T.segments(cfg)):
+        seg = tree["decoder"][f"seg{si}"]
+        for key, leaf in _flatten(seg, f"decoder.seg{si}.").items():
+            if leaf.shape[0] != n_rep:
+                raise ValueError(f"{key}: {leaf.shape[0]} stacked layers, expected {n_rep}")
+        decoder[f"seg{si}"] = {sub: [_tree_map(lambda t, r=r: t[r], sub_tree)
+                                     for r in range(n_rep)]
+                               for sub, sub_tree in seg.items()}
+    top = {k: tree[k] for k in ("embed", "final_norm", "unembed") if k in tree}
+    return _flatten({**top, "decoder": decoder})
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, device="cuda"):
+        super().__init__()
+        if cfg.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not ported yet (ROADMAP A20); "
+                f"ported: {PORTED_FAMILIES}")
+        self.cfg = cfg
+        self.dev = _device.resolve(device)
+        self.param_dtype = L.dtype_of(cfg.param_dtype)
+        self.compute_dtype = L.dtype_of(cfg.compute_dtype)
+        _register(self, self._make_params(None, torch.device("meta")))
+        self._params = _tree(self)
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+
+    def _make_params(self, gen: Optional[torch.Generator], device) -> Params:
+        cfg, dt = self.cfg, self.param_dtype
+        norm = L.make_norm if cfg.rmsnorm else L.make_layernorm
+        p: Params = {
+            "embed": L.make_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, device),
+            "final_norm": norm(cfg.d_model, dt, device),
+            "decoder": T.make_stack(gen, cfg, dt, device),
+        }
+        if not cfg.tie_embeddings:
+            p["unembed"] = L.make_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, device)
+        return p
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
+        """Random weights with the JAX package's scales (embeddings N(0, 0.02²),
+        dense N(0, 1/d_in), biases 0, norm scales 1), drawn from
+        ``generator`` (default: a CPU generator seeded 0)."""
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        return self.load_params(_flatten(self._make_params(gen, self.dev)))
+
+    def load_params(self, state: Mapping[str, torch.Tensor]) -> "Model":
+        """Take every parameter from ``state`` (same keys, shapes and dtype
+        as ``state_dict()``), moved to the model's device."""
+        want = self.state_dict()
+        if set(state) != set(want):
+            raise ValueError(f"state keys differ: missing {sorted(set(want) - set(state))}, "
+                             f"unexpected {sorted(set(state) - set(want))}")
+        for k, t in want.items():
+            if tuple(state[k].shape) != tuple(t.shape) or state[k].dtype != t.dtype:
+                raise ValueError(f"{k}: expected {tuple(t.shape)} {t.dtype}, got "
+                                 f"{tuple(state[k].shape)} {state[k].dtype}")
+        self.load_state_dict({k: v.to(self.dev) for k, v in state.items()},
+                             strict=True, assign=True)
+        self._params = _tree(self)
+        return self
+
+    def params(self) -> Params:
+        """The params as a nested dict (the JAX tree, one list entry per
+        layer), built once per :meth:`load_params`."""
+        return self._params
+
+    # ------------------------------------------------------------------
+    # forward pieces
+    # ------------------------------------------------------------------
+
+    def _logits(self, p: Params, x) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.norm_apply(p["final_norm"], x, cfg.norm_eps, self.compute_dtype)
+        table = p["embed"]["table"] if cfg.tie_embeddings else p["unembed"]["table"]
+        return L.unembed(table, x, self.compute_dtype)
+
+    # ------------------------------------------------------------------
+    # public: prefill / decode
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Forward over the prompt; returns the last position's logits over
+        the padded vocabulary, (B, 1, V_padded)."""
+        p = self.params()
+        x = L.embed(p["embed"], batch["tokens"].to(self.dev), self.compute_dtype)
+        x = T.stack_apply(p["decoder"], self.cfg, x, self.compute_dtype, causal=True)
+        return self._logits(p, x[:, -1:])
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Params, tokens: torch.Tensor, position: int):
+        """One token per request at ``position``: (logits (B,1,V_padded),
+        cache), the cache updated in place."""
+        p = self.params()
+        x = L.embed(p["embed"], tokens.to(self.dev), self.compute_dtype)
+        x, cache = T.stack_decode(p["decoder"], self.cfg, x, cache, int(position),
+                                  self.compute_dtype)
+        return self._logits(p, x), cache
+
+    @torch.inference_mode()
+    def make_cache(self, batch: int, seq: int) -> Params:
+        return T.make_stack_cache(self.cfg, batch, seq, self.dev)
+
+    # ------------------------------------------------------------------
+    # inputs
+    # ------------------------------------------------------------------
+
+    def input_specs(self, shape_cfg) -> Dict:
+        """Shape and dtype of every model input of one prefill or decode
+        cell, as :class:`TensorSpec` leaves."""
+        b, s = shape_cfg.global_batch, shape_cfg.seq_len
+        i64 = torch.int64
+        if shape_cfg.kind == "prefill":
+            return {"batch": {"tokens": TensorSpec((b, s), i64)}}
+        if shape_cfg.kind != "decode":
+            raise NotImplementedError(f"{shape_cfg.kind!r} cells: training is not ported "
+                                      "yet (ROADMAP A20)")
+        cache = {
+            f"seg{si}": {f"sub{j}": [
+                {n: TensorSpec((b, s, self.cfg.n_kv_heads, self.cfg.head_dim),
+                               torch.bfloat16) for n in ("k", "v")}
+                for _ in range(n_rep)] for j in range(len(sigs))}
+            for si, (n_rep, sigs) in enumerate(T.segments(self.cfg))}
+        return {"cache": cache, "tokens": TensorSpec((b, 1), i64),
+                "position": TensorSpec((), i64)}
+
+    def make_batch(self, generator: torch.Generator, shape_cfg) -> Dict:
+        """Random inputs matching :meth:`input_specs`, on the model's device:
+        integers uniform in [0, vocab_size), floats N(0, 1), as in JAX."""
+
+        def mk(spec):
+            if isinstance(spec, dict):
+                return {k: mk(v) for k, v in spec.items()}
+            if isinstance(spec, list):
+                return [mk(v) for v in spec]
+            if spec.dtype.is_floating_point:
+                x = torch.randn(spec.shape, generator=generator, device=generator.device)
+                return x.to(device=self.dev, dtype=spec.dtype)
+            x = torch.randint(0, self.cfg.vocab_size, spec.shape, generator=generator,
+                              device=generator.device, dtype=spec.dtype)
+            return x.to(self.dev)
+
+        return mk(self.input_specs(shape_cfg))
+
+
+def build_model(cfg, device="cuda") -> Model:
+    return Model(cfg, device)

@@ -1,0 +1,130 @@
+"""GQA self-attention: the prefill path through the flash-attention kernel
+(K6) and the KV-cache decode path.
+
+Port of the self-attention half of ``repro.models.attention``
+(cross-attention waits for the encoder-decoder family, ROADMAP A20).
+
+Layouts, as in the JAX package:
+  hidden        (B, S, D)
+  q             (B, S, KV, G, hd)   G = n_heads // n_kv_heads, head h = kv*G + g
+  k, v          (B, S, KV, hd)
+  decode cache  per layer {"k": (B, S, KV, hd), "v": ...} (bf16) + int position
+
+The prefill path folds the heads into the leading dimension and calls
+``kernels.flashattn.flash_attention``, whose contract is the TPU kernel's:
+MHA on (BH, S, hd). For G > 1 the K/V heads are repeated G times first (a
+plain copy); folding the group into the kernel's indexing is later work.
+The decode path is plain PyTorch, as JAX computes it outside any kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..kernels import flashattn as FA
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+def make_attention(gen, cfg, dtype, device) -> Params:
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
+        "wq": L.make_dense(gen, d, cfg.n_heads * hd, dtype, device, bias=cfg.qkv_bias),
+        "wk": L.make_dense(gen, d, cfg.n_kv_heads * hd, dtype, device, bias=cfg.qkv_bias),
+        "wv": L.make_dense(gen, d, cfg.n_kv_heads * hd, dtype, device, bias=cfg.qkv_bias),
+        "wo": L.make_dense(gen, cfg.n_heads * hd, d, dtype, device),
+    }
+
+
+def _qkv(p, cfg, x, positions, compute_dtype):
+    hd = cfg.head_dim
+    n_kv = cfg.n_kv_heads
+    group = cfg.n_heads // n_kv
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x, compute_dtype).reshape(b, s, n_kv, group, hd)
+    k = L.dense(p["wk"], x, compute_dtype).reshape(b, s, n_kv, hd)
+    v = L.dense(p["wv"], x, compute_dtype).reshape(b, s, n_kv, hd)
+    if cfg.use_rope:
+        q = apply_rope_grouped(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def apply_rope_grouped(q, positions, theta):
+    b, s, n_kv, g, hd = q.shape
+    q2 = L.apply_rope(q.reshape(b, s, n_kv * g, hd), positions, theta)
+    return q2.reshape(b, s, n_kv, g, hd)
+
+
+# ---------------------------------------------------------------------------
+# Self-attention (prefill) through K6
+# ---------------------------------------------------------------------------
+
+
+def multihead_attention(q, k, v, causal: bool):
+    """q: (B,S,KV,G,hd); k, v: (B,S,KV,hd) -> (B,S,KV,G,hd) in q's dtype.
+    Self-attention only (as many keys as queries)."""
+    b, s, n_kv, g, hd = q.shape
+    if k.shape[1] != s:
+        raise NotImplementedError("attention with another key length (cross-attention) "
+                                  "is not ported yet (ROADMAP A20)")
+    bh = b * n_kv * g
+    qf = q.permute(0, 2, 3, 1, 4).reshape(bh, s, hd)
+    kf = k.permute(0, 2, 1, 3)                               # (B, KV, S, hd)
+    vf = v.permute(0, 2, 1, 3)
+    if g > 1:
+        # head h = kv*G + g reads K/V head kv
+        kf = kf.repeat_interleave(g, dim=1)
+        vf = vf.repeat_interleave(g, dim=1)
+    out = FA.flash_attention(qf.contiguous(), kf.reshape(bh, s, hd).contiguous(),
+                             vf.reshape(bh, s, hd).contiguous(), causal=causal)
+    return out.reshape(b, n_kv, g, s, hd).permute(0, 3, 1, 2, 4)
+
+
+def self_attention(p, cfg, x, compute_dtype, causal: bool = True):
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions, compute_dtype)
+    out = multihead_attention(q, k, v, causal)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(compute_dtype)
+    return L.dense(p["wo"], out, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode path (one new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def make_cache(cfg, batch: int, seq: int, device, dtype=torch.bfloat16):
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_self_attention(p, cfg, x, cache, position: int, compute_dtype):
+    """x: (B, 1, D); cache k/v: (B, S, KV, hd); position: int.
+
+    Returns (out (B,1,D), cache). The new token's K/V overwrite slot
+    ``position`` of the cache in place (JAX returns an updated copy).
+    """
+    b = x.shape[0]
+    hd = cfg.head_dim
+    pos = torch.full((b, 1), position, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, pos, compute_dtype)
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[:, position] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, position] = v_new[:, 0].to(v_cache.dtype)
+
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k_cache.to(q.dtype))
+    s = s.float() * (1.0 / math.sqrt(hd))
+    # mask out slots beyond the current position (cache may be part-filled)
+    invalid = torch.arange(k_cache.shape[1], device=x.device) > position
+    s = s.masked_fill(invalid, FA.MASKED)
+    pattn = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", pattn.to(v_cache.dtype), v_cache)
+    out = out.reshape(b, 1, cfg.n_heads * hd).to(compute_dtype)
+    return L.dense(p["wo"], out, compute_dtype), cache

@@ -1,0 +1,110 @@
+"""Port parity of the flash-attention kernel's plain version (K6 on the card)
+and of the prefill attention around it.
+
+Same numpy inputs through the JAX package and the port:
+  * ``repro_torch.kernels.flashattn.flash_attention`` on the CPU (the plain
+    version) against JAX ``ops.flash_attention`` (the Pallas kernel in
+    interpret mode) on ``tests/test_flashattn.py``'s grid, at its tolerances:
+    fp32 rtol = atol = 2e-4, bf16 rtol = atol = 2e-2;
+  * ``repro_torch.models.attention.multihead_attention`` (GQA through the
+    K/V repeat) against JAX's blockwise ``multihead_attention`` in fp32 at
+    rtol = atol = 2e-4, with S ragged against JAX's 512-row query block.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flashattn import ops, ref
+from repro.kernels.flashattn.flashattn import hbm_traffic_model
+from repro.models import attention as JA
+from repro_torch.kernels import counts
+from repro_torch.kernels import flashattn as FA
+from repro_torch.models import attention as TA
+
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _both(shape, seed, dtype):
+    """One numpy draw as a JAX array and a torch tensor of ``dtype`` (both
+    round fp32 to bf16 to nearest-even, so the inputs are equal)."""
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("s,qb,kc", [(64, 32, 32), (128, 32, 16),
+                                     (96, 32, 32), (64, 64, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_flash_kernel(s, qb, kc, causal, dtype):
+    bh, hd = 4, 16
+    (qj, qt), (kj, kt), (vj, vt) = (_both((bh, s, hd), i, dtype) for i in range(3))
+    want = ops.flash_attention(qj, kj, vj, causal=causal, q_block=qb, kv_chunk=kc)
+    counts.reset()
+    got = FA.flash_attention(qt, kt, vt, causal=causal)
+    assert counts.snapshot() == {"plain:flash_attention": 1}
+    assert got.dtype == qt.dtype and got.shape == (bh, s, hd)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_oracle_matches_jax_oracle_and_plain(causal):
+    (qj, qt), (kj, kt), (vj, vt) = (_both((3, 80, 16), 10 + i, "float32") for i in range(3))
+    oracle = FA.attention(qt, kt, vt, causal)
+    np.testing.assert_allclose(_np(oracle), _np(ref.attention(qj, kj, vj, causal)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(FA.flash_attention_plain(qt, kt, vt, causal)),
+                               _np(oracle), rtol=2e-4, atol=2e-4)
+
+
+def test_uniform_v_gives_v_rows():
+    """Uniform V: attention output equals the V row regardless of scores."""
+    bh, s, hd = 2, 64, 16
+    _, q = _both((bh, s, hd), 3, "float32")
+    _, k = _both((bh, s, hd), 4, "float32")
+    v = torch.arange(hd, dtype=torch.float32).expand(bh, s, hd).contiguous()
+    for causal in (False, True):
+        torch.testing.assert_close(FA.flash_attention(q, k, v, causal), v,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_traffic_model_matches_jax():
+    for args in ((32768, 64, 20, 2), (512, 64, 20, 2), (2048, 128, 28, 8, 256, 4)):
+        assert FA.hbm_traffic_model(*args) == hbm_traffic_model(*args)
+
+
+def test_wrapper_refuses_what_the_kernel_contract_excludes():
+    q = torch.zeros((2, 8, 16))
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="one shape"):
+        FA.flash_attention(q, q[:, :4], q[:, :4])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        m = q.to("meta")
+        FA.flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n_kv,group", [(2, 2), (4, 1), (1, 3)])
+def test_multihead_attention_matches_jax(n_kv, group, causal):
+    """S = 600 is ragged against JAX's 512-row query block (JAX then takes
+    one 600-row block with 300-key chunks); the port folds the heads, repeats
+    K/V for G > 1 and calls the kernel's plain version."""
+    b, s, hd = 1, 600, 16
+    qj, qt = _both((b, s, n_kv, group, hd), 20, "float32")
+    kj, kt = _both((b, s, n_kv, hd), 21, "float32")
+    vj, vt = _both((b, s, n_kv, hd), 22, "float32")
+    want = JA.multihead_attention(qj, kj, vj, causal)
+    counts.reset()
+    got = TA.multihead_attention(qt, kt, vt, causal)
+    assert counts.snapshot() == {"plain:flash_attention": 1}
+    assert got.shape == (b, s, n_kv, group, hd)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)

@@ -1,6 +1,6 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version on the same inputs, the wrappers' checks, and a small
-registration on the card against the same registration on the CPU.
+PyTorch version on the same inputs, the wrappers' checks, a small
+registration and a smoke LM serve on the card against the same on the CPU.
 
 Marked ``gpu``; each test decides inside itself whether there is a card and
 skips without one. On a machine with a card (and without JAX, which this
@@ -11,7 +11,13 @@ file does not import):
 Tolerances: K1 and K5 rtol 1e-5 / atol 1e-4; K2, K3 and K4 (fp32 and bf16
 weights) 1e-5 * max(|plain|, 1). The bf16 weights of kernel and plain version are
 bit-equal (``kernels/interp3d.py``), so the bound is fp32 accumulation noise.
+K6: fp32 ``tests/test_flashattn.py``'s rtol = atol = 2e-4; bf16 rtol 8e-3
+(one ulp of the bf16 output, at most 2^-7 |x|: kernel and plain version both
+accumulate in fp32 and round once) and atol 1e-4 (fp32 order noise of outputs
+near 0), with at most 5% of the elements differing at all.
 """
+
+import dataclasses
 
 import math
 
@@ -19,15 +25,19 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs import ARCHS
 from repro_torch.core import interp as I
 from repro_torch.core import registration as R
 from repro_torch.data import synthetic as S
 from repro_torch.distributed import group as G
 from repro_torch.kernels import counts
 from repro_torch.kernels import fd8 as FD8
+from repro_torch.kernels import flashattn as FA
 from repro_torch.kernels import interp3d as K
 from repro_torch.kernels import pencil as P
 from repro_torch.kernels import prefilter as PF
+from repro_torch.launch import serve_lm
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.gpu
 
@@ -205,3 +215,49 @@ def test_register_sharded_on_a_one_rank_nccl_group_matches_register(cuda, tmp_pa
     assert launched.get("stencil_valid:fd8", 0) > 0
     assert launched.get("apply_plan_fused:inc_state", 0) > 0
     assert not [k for k in launched if k.startswith("plain:")]
+
+
+K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-4)}
+K6_BF16_DIFFER = 0.05
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd,s", [(64, 256), (64, 200), (128, 130), (128, 64)])
+def test_k6_matches_plain(cuda, hd, s, dtype, causal):
+    """Full and ragged sequence lengths (S = 200 and 130 end in a part
+    tile), both head sizes."""
+    q, k, v = (_randn((6, s, hd), 20 + i, cuda).to(dtype) for i in range(3))
+    got = FA.flash_attention(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = FA.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), ref.float(), **K6_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert float((got != ref).float().mean()) <= K6_BF16_DIFFER
+
+
+def test_k6_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q = _randn((2, 64, 64), 30, cuda)
+    for bad, err in (((q[..., :32].contiguous(),) * 3, "head size"),
+                     ((q.transpose(0, 1),) * 3, "contiguous"),
+                     ((q, q.bfloat16(), q), "one dtype")):
+        with pytest.raises((ValueError, TypeError), match=err):
+            FA.flash_attention(*bad)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "smollm-135m"])
+def test_smoke_serve_on_card_matches_cpu(cuda, arch):
+    """The smoke config with K6's head size 64, fp32, the same seeded
+    weights on the card and on the CPU: equal greedy ids, prefill logits
+    within 1e-4 * max|logits|, one K6 launch per layer and no plain version."""
+    cfg = dataclasses.replace(ARCHS[arch].smoke(), head_dim=64, param_dtype="float32",
+                              compute_dtype="float32")
+    tok = torch.randint(0, cfg.vocab_size, (3, 100), generator=torch.Generator().manual_seed(1))
+    ref = serve_lm.serve(build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)), tok, 6)
+    model = build_model(cfg, cuda).init(torch.Generator().manual_seed(0))
+    counts.reset()
+    got = serve_lm.serve(model, tok, 6)
+    assert counts.snapshot() == {"flash_attention": cfg.n_layers}
+    assert torch.equal(got.ids.cpu(), ref.ids)
+    want = ref.prefill_logits
+    assert float((got.prefill_logits.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())

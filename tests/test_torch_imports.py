@@ -13,6 +13,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import interop
+from repro_torch.configs import ARCHS
 from repro_torch.core import interp as I
 from repro_torch.core import measures as M
 from repro_torch.core import registration as R
@@ -20,8 +21,11 @@ from repro_torch.core import semilag as SL
 from repro_torch.data import synthetic as S
 from repro_torch.distributed import group as G
 from repro_torch.kernels import counts
+from repro_torch.kernels import flashattn as FA
 from repro_torch.kernels import interp3d as K
 from repro_torch.kernels import pencil as P
+from repro_torch.launch import serve_lm
+from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -52,6 +56,44 @@ def test_import_scan_covers_the_slab_package():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("__init__", "claire_dist", "compression", "group", "halo"):
         assert f"src/repro_torch/distributed/{name}.py" in scanned
+
+
+def test_import_scan_covers_the_lm_path():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("configs/base", "configs/registry", "configs/qwen1_5_0_5b",
+                 "configs/smollm_135m", "models/layers", "models/attention",
+                 "models/transformer", "models/api", "launch/serve_lm",
+                 "kernels/flashattn"):
+        assert f"src/repro_torch/{name}.py" in scanned
+    assert (ROOT / "src/repro_torch/csrc/flashattn.cu").exists()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b",
+                                  "whisper-large-v3", "internvl2-1b"])
+def test_unported_lm_families_raise_not_implemented(arch):
+    cfg = ARCHS[arch].smoke()
+    assert cfg.family in ("moe", "ssm", "hybrid", "encdec", "vlm")
+    with pytest.raises(NotImplementedError, match="A20"):
+        build_model(cfg, device="cpu")
+
+
+def test_serve_lm_on_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--arch", "smollm-135m", "--smoke", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(ARCHS["qwen1.5-0.5b"].smoke())
+
+
+def test_cpu_flash_attention_takes_plain_version_and_counts_it():
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((3, 40, 16), generator=gen) for _ in range(3))
+    counts.reset()
+    for causal in (False, True):
+        torch.testing.assert_close(FA.flash_attention(q, k, v, causal),
+                                   FA.flash_attention_plain(q, k, v, causal), rtol=0, atol=0)
+    assert counts.snapshot() == {"plain:flash_attention": 2}
+    counts.reset()
 
 
 def test_cuda_slab_group_without_nccl_raises(monkeypatch, tmp_path):
