@@ -10,8 +10,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               parallel, with ptxas' registers and spills per kernel.
 3. kernels  : each kernel against its plain PyTorch version on the same
               inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
-              K=3 stacks; K5 on a (size+8)-row halo-extended field and on a
-              5-field stack of size/4+8 rows, the one-rank and 4-slab
+              K=3 stacks, then both modes on every axis of the stacks in
+              K1_EDGE_SHAPES, where its tiling is awkward; K5 on a
+              (size+8)-row halo-extended field and on a 5-field stack of
+              size/4+8 rows, the one-rank and 4-slab
               shapes; K2 with K=1 and K=3 on a cubic plan from the
               footpoints of a smooth velocity, fp32 and bf16 weights; K3 with
               both epilogues, fp32 and bf16; K4 for each basis, fp32 and bf16
@@ -21,8 +23,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (c) BH 28, S 1024, hd 128, bf16, causal; (d) BH 16, S 16384,
               hd 64, bf16, causal, the plain version per head; and at the
               prefill shape of every LM path below, B * n_heads x prompt x
-              head_dim, causal). Two faulty plain versions at (a), P rounded
-              to bf16 before P.V and the last key tile dropped, must fail
+              head_dim, causal; and bf16 at K6_EDGE: S = 1, 37, 64, 2000,
+              4097, hd 64 and 128, both flags). Two faulty plain versions at
+              (a), P rounded to bf16 before P.V and the last key tile
+              dropped, must fail
               K6's bf16 check, so that the check can see such faults.
 4. reference: 16^3 registrations on the card (fused plan path; plan-free)
               against the same registrations through the plain versions on
@@ -173,6 +177,12 @@ K6_CASES = {
     "c": (28, 1024, 128, "bfloat16", (True,)),
     "d": (16, 16384, 64, "bfloat16", (True,)),
 }
+#: bf16 K6 at one query row, part tiles and one whole tile: (BH, S) per hd.
+K6_EDGE = [(3, 1), (3, 37), (3, 64), (3, 2000), (2, 4097)]
+#: K1 at the shapes its tiling makes awkward, K=3 stacks: n < R (the wrap
+#: goes round more than once), 72 and 282 rows (the slab prefilter's), x3 not
+#: a multiple of 4 (the scalar shared-memory path).
+K1_EDGE_SHAPES = [(3, 5, 5, 5), (3, 72, 72, 72), (3, 282, 256, 256), (2, 6, 9, 75)]
 #: past this many score elements the K6 check runs the plain version per head
 PLAIN_SCORES_MAX = 2 ** 31
 #: LM serving paths: label -> (arch, requests, prompt tokens, generated).
@@ -296,7 +306,8 @@ def attention_flops(bh: int, s: int, hd: int, causal: bool) -> float:
 def _kernel_group(key: str) -> str:
     for group, marks in (("NCCL", ("nccl",)),
                          ("K6 flash_attention", ("flash_attention",)),
-                         ("K1 stencil_axis", ("stencil_axis",)),
+                         ("K1 stencil_axis", ("stencil_axis", "stencil_strided",
+                                              "stencil_rows")),
                          ("K5 stencil_valid", ("stencil_valid",)),
                          ("K3 apply_plan_fused", ("apply_plan_fused",)),
                          ("K2 apply_plan", ("apply_plan_kernel",)),
@@ -489,6 +500,18 @@ def main(argv=None) -> int:
     errs["stencil_axis:prefilter"] = max(
         k1_check(f"prefilter K={s.shape[0]}", PF.prefilter3d(s), prefilter_plain(s))
         for s in (stack2, stack3))
+    edge_gen = torch.Generator().manual_seed(args.seed + 2)
+    k1_modes = {"fd8": (FD8.FD8_COEFFS, False), "prefilter": (PF.PREFILTER_TAPS, True)}
+    for shp in K1_EDGE_SHAPES:
+        x = torch.randn(shp, generator=edge_gen).to(dev)
+        for a in range(3):
+            for mode, (taps, sym) in k1_modes.items():
+                sc = 1.0 if sym else 1.0 / (2 * math.pi / shp[1 + a])
+                key = "stencil_axis:" + mode
+                errs[key] = max(errs[key], k1_check(
+                    f"{mode} {list(shp)} axis {a}", P.stencil_axis(x, a, taps, sym, sc),
+                    P.stencil_axis_plain(x, a, taps, sym, sc)))
+        del x
 
     # K5 at the slab path's shapes: one rank's 264-row extended slab, and a
     # 5-field trajectory stack of the 4-slab layout (72 rows).
@@ -564,6 +587,17 @@ def main(argv=None) -> int:
                                tol=K6_TOL[dt], ok=ok))
             errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
             del got, ref
+    for hd in (64, 128):
+        for bh, s_len in K6_EDGE:
+            qkv = tuple(torch.randn((bh, s_len, hd), generator=cuda_gen, device=dev).bfloat16()
+                        for _ in range(3))
+            for causal in (False, True):
+                ok, err, differ = k6_close(FA.flash_attention(*qkv, causal=causal),
+                                           FA.flash_attention_plain(*qkv, causal), "bfloat16")
+                checks.append(dict(case=f"flash_attention (edge) {[bh, s_len, hd]} bfloat16 "
+                                        f"causal={causal}", max_abs_err=err, differ_share=differ,
+                                   tol=K6_TOL["bfloat16"], ok=ok))
+                errs["flash_attention"] = max(errs["flash_attention"], err)
     # the bf16 check must fail faulty plain versions at (a)
     qkv = k6_inputs["a"]
     for fault, causal in (("p_bf16", False), ("p_bf16", True), ("drop_tile", False)):

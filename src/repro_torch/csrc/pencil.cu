@@ -12,13 +12,32 @@
 // (8-15 taps, ~13-30 flops), far below the card's ~20 flop/B balance point,
 // so the least time is 8 B/voxel over 3.35 TB/s (40 us for one 256^3 field).
 //
-// Design: one thread per output voxel, neighbouring threads on neighbouring
-// x3 addresses, so every tap load of a warp is one coalesced 128 B line. The
-// 2R neighbour reads along the stencil axis are left to L1/L2 to serve again;
-// there is no shared-memory halo tile yet (later work). Periodic wrap is a
-// floor-mod on the axis index, taken non-negative. The sum is accumulated in
-// the same tap order as the plain PyTorch version, so the two differ only by
-// FMA contraction.
+// Design: a streaming halo kernel, one shape per kind of axis, with no index
+// division or wrap per tap. A field stack (B, N1, N2, N3) is seen as
+// (outer, n, inner) along the stencil axis.
+//   * Strided axes (x1, x2: inner = N2 N3 or N3): each thread owns one
+//     column of the contiguous inner dimension (a warp reads 128 B rows,
+//     coalesced) and walks a chunk of kChunk = 64 outputs along the axis. It
+//     loads the kChunk + 2R rows it needs once, into a register window
+//     (fully unrolled, R a template parameter), wrapping the row index once
+//     per loaded row (start from the floor-mod of i0 - R, then a compare per
+//     row, so any n >= 1 works, n < R included), and computes every output
+//     from registers. Each input is read (64 + 2R)/64 times: 1.125 for FD8,
+//     1.22 for the prefilter, and neighbouring chunks of a column are
+//     neighbouring blocks, so their halo rows meet in L2. The chunk's tail
+//     past n is loaded (wrapped) but not stored.
+//   * The contiguous axis (x3): a CTA holds whole x3 rows in shared memory,
+//     each extended by its wrapped halo of R values on both sides (taken
+//     once per row), loaded with coalesced float4 loads when n3 % 4 == 0,
+//     then each thread computes four consecutive outputs from five aligned
+//     float4 shared-memory reads and stores them as one float4 (scalar loads,
+//     reads and stores otherwise).
+// Both keep the plain version's tap order (acc = c0 f or 0, then acc +=
+// c_k (f[+k] +- f[-k]) for k = 1..R, then * scale), so the two differ only
+// by FMA contraction.
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -30,38 +49,214 @@ struct Taps {
   float c[kMaxTaps];
 };
 
-__device__ __forceinline__ int wrap(int j, int n) {
-  int m = j % n;
-  return m < 0 ? m + n : m;
-}
+// ---- K1, strided axes -----------------------------------------------------
 
-__global__ void stencil_axis_kernel(const float* __restrict__ f,
-                                    float* __restrict__ out, long long total,
-                                    int n, long long stride, int ntaps,
-                                    int symmetric, Taps taps, float scale) {
-  long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (g >= total) return;
-  const int i = static_cast<int>((g / stride) % n);
-  const long long base = g - static_cast<long long>(i) * stride;
-  float acc;
-  if (symmetric) {
-    // taps = (c0, c1, ..., cR)
-    acc = taps.c[0] * f[g];
-    for (int k = 1; k < ntaps; ++k) {
-      const float fp = f[base + wrap(i + k, n) * stride];
-      const float fm = f[base + wrap(i - k, n) * stride];
-      acc = acc + taps.c[k] * (fp + fm);
-    }
-  } else {
-    // taps = (c1, ..., cR)
-    acc = 0.0f;
-    for (int k = 1; k <= ntaps; ++k) {
-      const float fp = f[base + wrap(i + k, n) * stride];
-      const float fm = f[base + wrap(i - k, n) * stride];
-      acc = acc + taps.c[k - 1] * (fp - fm);
+constexpr int kChunk = 64;       // outputs per thread along a strided axis
+constexpr int kColThreads = 128; // columns per CTA
+
+// Grid: x = outer * chunks (chunk fastest), y = column blocks of `inner`.
+template <int R, bool SYM>
+__global__ void __launch_bounds__(kColThreads)
+stencil_strided_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
+                       long long inner, int chunks, Taps taps, float scale) {
+  const long long col = static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x;
+  if (col >= inner) return;
+  const int chunk = static_cast<int>(blockIdx.x % static_cast<unsigned>(chunks));
+  const long long o = blockIdx.x / static_cast<unsigned>(chunks);
+  const long long base = o * n * inner + col;
+  const int i0 = chunk * kChunk;
+
+  // w[r] = f[i0 - R + r], periodic: the row index wraps once per row.
+  int j = (i0 - R) % n;
+  if (j < 0) j += n;
+  const float* p = f + base + j * inner;
+  float w[kChunk + 2 * R];
+#pragma unroll
+  for (int r = 0; r < kChunk + 2 * R; ++r) {
+    w[r] = *p;
+    p += inner;
+    if (++j == n) {
+      j = 0;
+      p = f + base;
     }
   }
-  out[g] = acc * scale;
+  const int n_out = n - i0 < kChunk ? n - i0 : kChunk;
+  float* q = out + base + static_cast<long long>(i0) * inner;
+#pragma unroll
+  for (int t = 0; t < kChunk; ++t) {
+    if (t < n_out) {
+      float acc = SYM ? taps.c[0] * w[t + R] : 0.0f;
+#pragma unroll
+      for (int k = 1; k <= R; ++k) {
+        const float fp = w[t + R + k];
+        const float fm = w[t + R - k];
+        acc = acc + taps.c[SYM ? k : k - 1] * (SYM ? fp + fm : fp - fm);
+      }
+      q[t * inner] = acc * scale;
+    }
+  }
+}
+
+template <int R, bool SYM>
+int strided(const float* f, float* out, long long outer, int n, long long inner,
+            const Taps& taps, float scale, cudaStream_t stream) {
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int threads = inner >= kColThreads ? kColThreads
+                                           : static_cast<int>((inner + 31) / 32 * 32);
+  const long long col_blocks = (inner + threads - 1) / threads;
+  const long long x_blocks = outer * chunks;
+  if (col_blocks > 65535 || x_blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(x_blocks), static_cast<unsigned>(col_blocks));
+  stencil_strided_kernel<R, SYM><<<grid, threads, 0, stream>>>(f, out, n, inner, chunks,
+                                                                 taps, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K1, the contiguous axis ----------------------------------------------
+
+constexpr int kPad = 8;          // >= the largest radius, a multiple of 4
+constexpr int kRowThreads = 256;
+
+// acc over the taps around w[C] (w holds at least C - R .. C + R), R <= 8
+// at run time, in the plain version's order; tap indices stay compile-time
+// constants, so the taps stay in the parameter bank.
+template <int C, bool SYM>
+__device__ __forceinline__ float taps_at(const float* w, int radius, const Taps& taps,
+                                         float scale) {
+  float acc = SYM ? taps.c[0] * w[C] : 0.0f;
+#pragma unroll
+  for (int k = 1; k <= kPad; ++k) {
+    if (k <= radius) {
+      const float fp = w[C + k];
+      const float fm = w[C - k];
+      acc = acc + taps.c[SYM ? k : k - 1] * (SYM ? fp + fm : fp - fm);
+    }
+  }
+  return acc * scale;
+}
+
+// One CTA of (bx, by) threads holds `by` rows of length n in shared memory,
+// row y at sm[y * (n + 2 kPad) + kPad + i] for i in -R .. n + R - 1.
+// VEC (n % 4 == 0, 16-byte aligned f and out): float4 loads, and each thread
+// computes four outputs 4c .. 4c + 3 from sm[4c - 8 .. 4c + 11].
+template <bool VEC, bool SYM>
+__global__ void __launch_bounds__(kRowThreads)
+stencil_rows_kernel(const float* __restrict__ f, float* __restrict__ out, long long rows,
+                    int n, int radius, Taps taps, float scale) {
+  extern __shared__ float4 smem4[];
+  const int ld = n + 2 * kPad;
+  const long long row = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  const bool live = row < rows;
+  float* srow = reinterpret_cast<float*>(smem4) + threadIdx.y * ld + kPad;
+  const float* frow = f + row * n;
+  if (live) {
+    if (VEC) {
+      for (int c = threadIdx.x; c < n / 4; c += blockDim.x) {
+        const float4 x = *reinterpret_cast<const float4*>(frow + 4 * c);
+        *reinterpret_cast<float4*>(srow + 4 * c) = x;
+      }
+    } else {
+      for (int c = threadIdx.x; c < n; c += blockDim.x) srow[c] = frow[c];
+    }
+    // the halo: -R .. -1 and n .. n + R - 1, wrapped once each
+    for (int h = threadIdx.x; h < 2 * radius; h += blockDim.x) {
+      const int i = h < radius ? h - radius : n + h - radius;
+      int src = i % n;
+      if (src < 0) src += n;
+      srow[i] = frow[src];
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  float* orow = out + row * n;
+  if (VEC) {
+    for (int c = threadIdx.x; c < n / 4; c += blockDim.x) {
+      float w[20];
+#pragma unroll
+      for (int u = 0; u < 5; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(srow + 4 * c - 8 + 4 * u);
+        w[4 * u] = x.x;
+        w[4 * u + 1] = x.y;
+        w[4 * u + 2] = x.z;
+        w[4 * u + 3] = x.w;
+      }
+      float4 y;
+      y.x = taps_at<8, SYM>(w, radius, taps, scale);
+      y.y = taps_at<9, SYM>(w, radius, taps, scale);
+      y.z = taps_at<10, SYM>(w, radius, taps, scale);
+      y.w = taps_at<11, SYM>(w, radius, taps, scale);
+      *reinterpret_cast<float4*>(orow + 4 * c) = y;
+    }
+  } else {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+      float w[2 * kPad + 1];
+#pragma unroll
+      for (int d = -kPad; d <= kPad; ++d)
+        w[d + kPad] = (d >= -radius && d <= radius) ? srow[c + d] : 0.0f;
+      orow[c] = taps_at<kPad, SYM>(w, radius, taps, scale);
+    }
+  }
+}
+
+template <bool VEC, bool SYM>
+int rows_launch(const float* f, float* out, long long rows, int n, int radius,
+                const Taps& taps, float scale, cudaStream_t stream) {
+  const int q = VEC ? n / 4 : n;
+  const int bx = q < kRowThreads ? q : kRowThreads;
+  const int by = kRowThreads / bx;
+  const size_t smem = sizeof(float) * static_cast<size_t>(by) * (n + 2 * kPad);
+  const long long blocks = (rows + by - 1) / by;
+  if (blocks > INT_MAX || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stencil_rows_kernel<VEC, SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  stencil_rows_kernel<VEC, SYM><<<static_cast<unsigned>(blocks), dim3(bx, by), smem, stream>>>(
+      f, out, rows, n, radius, taps, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rows_dispatch(const float* f, float* out, long long rows, int n, int radius,
+                  int symmetric, const Taps& taps, float scale, cudaStream_t stream) {
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    return symmetric ? rows_launch<true, true>(f, out, rows, n, radius, taps, scale, stream)
+                     : rows_launch<true, false>(f, out, rows, n, radius, taps, scale, stream);
+  return symmetric ? rows_launch<false, true>(f, out, rows, n, radius, taps, scale, stream)
+                   : rows_launch<false, false>(f, out, rows, n, radius, taps, scale, stream);
+}
+
+// R = ntaps - 1 (symmetric) or ntaps (antisymmetric), 1..8 taps.
+int strided_dispatch(int ntaps, int symmetric, const float* f, float* out, long long outer,
+                     int n, long long inner, const Taps& t, float scale, cudaStream_t s) {
+  if (symmetric) {
+    switch (ntaps - 1) {
+      case 0: return strided<0, true>(f, out, outer, n, inner, t, scale, s);
+      case 1: return strided<1, true>(f, out, outer, n, inner, t, scale, s);
+      case 2: return strided<2, true>(f, out, outer, n, inner, t, scale, s);
+      case 3: return strided<3, true>(f, out, outer, n, inner, t, scale, s);
+      case 4: return strided<4, true>(f, out, outer, n, inner, t, scale, s);
+      case 5: return strided<5, true>(f, out, outer, n, inner, t, scale, s);
+      case 6: return strided<6, true>(f, out, outer, n, inner, t, scale, s);
+      case 7: return strided<7, true>(f, out, outer, n, inner, t, scale, s);
+    }
+  } else {
+    switch (ntaps) {
+      case 1: return strided<1, false>(f, out, outer, n, inner, t, scale, s);
+      case 2: return strided<2, false>(f, out, outer, n, inner, t, scale, s);
+      case 3: return strided<3, false>(f, out, outer, n, inner, t, scale, s);
+      case 4: return strided<4, false>(f, out, outer, n, inner, t, scale, s);
+      case 5: return strided<5, false>(f, out, outer, n, inner, t, scale, s);
+      case 6: return strided<6, false>(f, out, outer, n, inner, t, scale, s);
+      case 7: return strided<7, false>(f, out, outer, n, inner, t, scale, s);
+      case 8: return strided<8, false>(f, out, outer, n, inner, t, scale, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel K5: valid-mode antisymmetric stencil along one axis of a stack of
@@ -149,15 +344,13 @@ extern "C" int stencil_axis_f32(const float* f, float* out, long long batch,
     return static_cast<int>(cudaErrorInvalidValue);
   Taps t = {};
   for (int k = 0; k < ntaps; ++k) t.c[k] = taps[k];
-  const int n = axis == 0 ? n1 : (axis == 1 ? n2 : n3);
-  const long long stride = axis == 0 ? static_cast<long long>(n2) * n3
-                                     : (axis == 1 ? n3 : 1);
-  const long long total = batch * n1 * static_cast<long long>(n2) * n3;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  stencil_axis_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      f, out, total, n, stride, ntaps, symmetric, t, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (batch * n1 * static_cast<long long>(n2) * n3 == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (axis == 2)
+    return rows_dispatch(f, out, batch * n1 * static_cast<long long>(n2), n3,
+                         symmetric ? ntaps - 1 : ntaps, symmetric, t, scale, s);
+  const long long outer = axis == 0 ? batch : batch * n1;
+  const int n = axis == 0 ? n1 : n2;
+  const long long inner = axis == 0 ? static_cast<long long>(n2) * n3 : n3;
+  return strided_dispatch(ntaps, symmetric, f, out, outer, n, inner, t, scale, s);
 }

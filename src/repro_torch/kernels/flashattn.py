@@ -77,8 +77,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """(BH, S, hd) MHA attention, fp32 or bf16, output in q's dtype. On the
-    card K6 takes hd 64 or 128 and contiguous tensors of one dtype; it raises
-    on anything else."""
+    card K6 takes hd 64 or 128 and contiguous tensors of one dtype (bf16 ones
+    16-byte aligned: the kernel copies 16-byte chunks); it raises on anything
+    else."""
     _check(q, k, v)
     if q.device.type == "cpu":
         counts.bump("plain:flash_attention")
@@ -90,6 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel takes head size {HEAD_DIMS}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention bf16 kernel needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     lib = _build.library("flashattn", _SIGNATURES)
     fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32

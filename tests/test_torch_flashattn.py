@@ -8,8 +8,12 @@ Same numpy inputs through the JAX package and the port:
     fp32 rtol = atol = 2e-4, bf16 rtol = atol = 2e-2;
   * ``repro_torch.models.attention.multihead_attention`` (GQA through the
     K/V repeat) against JAX's blockwise ``multihead_attention`` in fp32 at
-    rtol = atol = 2e-4, with S ragged against JAX's 512-row query block.
+    rtol = atol = 2e-4, with S ragged against JAX's 512-row query block;
+  * a plain-PyTorch emulation of the card kernel's bf16 tile arithmetic
+    (``_k6_bf16_tiles``) against the plain version, at K6's bf16 check.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -108,3 +112,58 @@ def test_multihead_attention_matches_jax(n_kv, group, causal):
     assert counts.snapshot() == {"plain:flash_attention": 1}
     assert got.shape == (b, s, n_kv, group, hd)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+
+
+#: K6's bf16 check on the card (``chip_smoke.py``): within rtol 8e-3 / atol
+#: 1e-4 of the plain version, with at most 5% of the elements differing.
+K6_BF16 = dict(rtol=8e-3, atol=1e-4, differ=0.05)
+
+
+def _k6_bf16_tiles(q, k, v, causal, split_p=True):
+    """The card kernel's bf16 arithmetic in plain PyTorch: fp32 scores of the
+    bf16 inputs, scaled afterwards, inside the exponent (in log2 units: the
+    kernel's exp is exp2);
+    an online softmax over 64-key tiles with m, l and acc in fp32; P.V with p
+    as two bf16 halves hi = bf16(p), lo = bf16(p - hi), each product summed
+    in fp32 (``split_p=False``: p rounded to bf16, the fault the split
+    avoids); out = acc / max(l, 1e-30) rounded once to bf16."""
+    bh, s_len, hd = q.shape
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, s_len, 1), -1e30)
+    l = torch.zeros((bh, s_len, 1))
+    acc = torch.zeros((bh, s_len, hd))
+    rows = torch.arange(s_len)
+    for k0 in range(0, s_len, 64):
+        keys = torch.arange(k0, min(k0 + 64, s_len))
+        x = qf @ kf[:, keys].transpose(-1, -2)
+        if causal:
+            x = x.masked_fill(keys[None, :] > rows[:, None], -1e30)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True) * scale_log2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x * scale_log2 - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr
+        hi = p.bfloat16().float()
+        acc = acc + hi @ vf[:, keys]
+        if split_p:
+            acc = acc + (p - hi).bfloat16().float() @ vf[:, keys]
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).bfloat16()
+
+
+def _k6_bf16_check(got, ref):
+    d = (got.float() - ref.float()).abs()
+    within = bool((d <= K6_BF16["atol"] + K6_BF16["rtol"] * ref.float().abs()).all())
+    return within and float((d > 0).float().mean()) <= K6_BF16["differ"]
+
+
+@pytest.mark.parametrize("split_p", [True, False], ids=["p_split", "p_bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k6_bf16_tile_arithmetic_meets_the_card_check(hd, causal, split_p):
+    """S = 300 ends in a part tile. The split P.V passes K6's bf16 check
+    against the plain version; p rounded to bf16 before P.V must fail it."""
+    q, k, v = (_both((4, 300, hd), 30 + i, "bfloat16")[1] for i in range(3))
+    got = _k6_bf16_tiles(q, k, v, causal, split_p)
+    assert _k6_bf16_check(got, FA.flash_attention_plain(q, k, v, causal)) == split_p

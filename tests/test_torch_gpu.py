@@ -81,6 +81,24 @@ def test_k1_matches_plain(cuda, axis):
                                    rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["fd8", "prefilter"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(3, 5, 5, 5), (3, 72, 72, 72), (3, 282, 256, 256),
+                                   (2, 6, 9, 75)], ids=["n5", "n72", "slab282", "odd_n3"])
+def test_k1_streaming_shapes_match_plain(cuda, shape, axis, mode):
+    """The shapes K1's tiling makes awkward: n < R (the wrap goes round more
+    than once), 72 and 282 rows (not a multiple of the 64-row chunk), x3 not a
+    multiple of 4 (scalar shared-memory path), a K=3 stack."""
+    f = _randn(shape, 11, cuda)
+    if mode == "fd8":
+        taps, sym, sc = FD8.FD8_COEFFS, False, 1.0 / (2 * math.pi / shape[1 + axis])
+    else:
+        taps, sym, sc = PF.PREFILTER_TAPS, True, 1.0
+    got = P.stencil_axis(f, axis, taps, sym, sc)
+    torch.testing.assert_close(got, P.stencil_axis_plain(f, axis, taps, sym, sc),
+                               rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_k5_matches_plain(cuda, axis):
     """Valid-mode stencil on a stack whose ``axis`` carries 2 x 4 halo rows,
@@ -236,11 +254,27 @@ def test_k6_matches_plain(cuda, hd, s, dtype, causal):
         assert float((got != ref).float().mean()) <= K6_BF16_DIFFER
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 37, 64, 2000, 4097])
+def test_k6_bf16_tensor_core_shapes(cuda, s, hd, causal):
+    """The bf16 tensor-core kernel at one query row, part tiles (37, 2000,
+    4097 = 64 tiles + 1 row) and one whole tile, against K6's bf16 check."""
+    bh = 3 if s <= 2000 else 2
+    q, k, v = (_randn((bh, s, hd), 40 + i, cuda).bfloat16() for i in range(3))
+    got = FA.flash_attention(q, k, v, causal)
+    ref = FA.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), ref.float(), **K6_TOL[torch.bfloat16])
+    assert float((got != ref).float().mean()) <= K6_BF16_DIFFER
+
+
 def test_k6_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q = _randn((2, 64, 64), 30, cuda)
     for bad, err in (((q[..., :32].contiguous(),) * 3, "head size"),
                      ((q.transpose(0, 1),) * 3, "contiguous"),
-                     ((q, q.bfloat16(), q), "one dtype")):
+                     ((q, q.bfloat16(), q), "one dtype"),
+                     ((q.bfloat16().reshape(-1)[4:4 + 127 * 64].view(1, 127, 64),) * 3,
+                      "aligned")):
         with pytest.raises((ValueError, TypeError), match=err):
             FA.flash_attention(*bad)
 

@@ -16,11 +16,13 @@ from repro.core import derivatives as jD
 from repro.core import grid as jG
 from repro.core import interp as jI
 from repro.kernels.fd8 import ops as fd8_ops
+from repro.kernels.pencil import stencil_pencil
 from repro.kernels.prefilter import ops as pf_ops
 from repro_torch.core import derivatives as tD
 from repro_torch.core import grid as tG
 from repro_torch.core import interp as tI
 from repro_torch.kernels import fd8 as tFD8
+from repro_torch.kernels import pencil as tP
 from repro_torch.kernels import prefilter as tPF
 
 SHAPES = [(8, 8, 8), (16, 12, 8), (24, 16, 32), (9, 16, 8), (8, 10, 12)]
@@ -42,6 +44,29 @@ def test_fd8_partial_matches_pallas(shape, axis):
     np.testing.assert_allclose(tFD8.fd8_partial(_t(f), axis).numpy(),
                                np.asarray(fd8_ops.fd8_partial(jnp.asarray(f), axis)),
                                **TOL)
+
+
+@pytest.mark.parametrize("mode", ["fd8", "prefilter"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("case", ["n5", "n72", "batch5"])
+def test_stencil_plain_matches_pallas_at_awkward_shapes(case, axis, mode):
+    """K1's plain version (what the card kernel is held to) against JAX
+    ``stencil_pencil`` where the card's tiling is awkward: n = 5 < R (the wrap
+    goes round more than once), n = 72 (not a multiple of its 64-row chunk)
+    and a batch of 5 fields (JAX filters each field)."""
+    shape = [6, 7, 8]
+    if case != "batch5":
+        shape[axis] = int(case[1:])
+    lead = (5,) if case == "batch5" else ()
+    f = _rand(lead + tuple(shape), 11 + axis)
+    if mode == "fd8":
+        taps, sym, scale = tFD8.FD8_COEFFS, False, shape[axis] / (2 * np.pi)
+    else:
+        taps, sym, scale = tPF.PREFILTER_TAPS, True, 1.0
+    got = tP.stencil_axis_plain(_t(f), axis, taps, sym, scale).numpy()
+    want = np.stack([np.asarray(stencil_pencil(jnp.asarray(x), axis, taps, sym, scale))
+                     for x in f.reshape((-1,) + tuple(shape))]).reshape(f.shape)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:3])
