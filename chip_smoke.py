@@ -14,11 +14,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               K1_EDGE_SHAPES, where its tiling is awkward; K5 on a
               (size+8)-row halo-extended field and on a 5-field stack of
               size/4+8 rows, the one-rank and 4-slab
-              shapes; K2 with K=1 and K=3 on a cubic plan from the
-              footpoints of a smooth velocity, fp32 and bf16 weights; K3 with
-              both epilogues, fp32 and bf16; K4 for each basis, fp32 and bf16
-              weights, K=1 and K=2, at those footpoints and at the same
-              shifted by -3; K6 flash attention at (a) BH 128, S 2048, hd 64,
+              shapes; K3 with both epilogues, fp32 and bf16, on a cubic
+              plan from the footpoints of a smooth velocity; K2 and K4 for
+              each basis, fp32 and bf16 weights, K=1, 2 and 3, at each query
+              set of ``k24_query_sets`` (those footpoints, shifted by -3 and
+              across the periodic seam, uniform over the grid, on 5^3 and
+              16x24x40 fields, as a 1D output), and the share of K4's cubic
+              blocks that staged their shared-memory source box per set
+              (>= 0.9 at the footpoints, 0 at uniform queries); K6 flash
+              attention at (a) BH 128, S 2048, hd 64,
               bf16, both flags; (b) BH 16, S 1000, hd 64, fp32, both flags;
               (c) BH 28, S 1024, hd 128, bf16, causal; (d) BH 16, S 16384,
               hd 64, bf16, causal, the plain version per head; and at the
@@ -65,7 +69,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              (a ragged tail) + 48
 12. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
-              computes the same function, where there is one (K6: SDPA).
+              computes the same function, where there is one (K6: SDPA); K4
+              also at uniform queries, and ptxas' registers and spills of
+              each K2 / K4 variant.
 13. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
               and the device's idle share of the unprofiled wall time; then
@@ -256,6 +262,41 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_kernels(lines, marks):
+    """{kernel: registers, stack frame and spills} from ``nvcc -Xptxas -v``
+    lines, for the kernels whose mangled name holds one of ``marks``; names
+    demangled by ``c++filt`` where it exists."""
+    import re
+
+    found, name = {}, None
+    for ln in lines:
+        hit = re.search(r"Compiling entry function '(\w+)'", ln)
+        if hit:
+            name = hit.group(1) if any(m in hit.group(1) for m in marks) else None
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", ln)
+        if hit:
+            found.setdefault(name, {}).update(
+                stack=int(hit.group(1)), spill_stores=int(hit.group(2)),
+                spill_loads=int(hit.group(3)))
+        hit = re.search(r"Used (\d+) registers", ln)
+        if hit:
+            found.setdefault(name, {})["registers"] = int(hit.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True,
+                               text=True, timeout=30).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(found):
+        names = list(found)
+    short = [re.search(r"\w+<[^>]*>", nm) for nm in names]
+    return {(sh.group(0) if sh else nm): v
+            for nm, sh, v in zip(names, short, found.values())}
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -421,6 +462,31 @@ def grid_sample_linear(coef, q, pad: int):
     return call
 
 
+def k24_query_sets(foot, seed: int, dev):
+    """K2 / K4 query sets: label -> (field shape, query points). The path's
+    footpoints ``foot`` (also shifted by -3, and across the periodic seam by
+    -9.5 and by +(n - 0.5)), uniform queries over the whole grid (every
+    block's source box over budget), the footpoints of a smooth velocity on a
+    5^3 and a 16 x 24 x 40 field, and ``foot`` as a flattened (1D) output."""
+    import torch
+    from repro_torch.core import semilag as SL
+    from repro_torch.data import synthetic as S
+
+    shape = tuple(foot.shape[1:])
+    n = torch.tensor(shape, dtype=torch.float32, device=dev).reshape(3, 1, 1, 1)
+    gen = torch.Generator().manual_seed(seed + 3)
+    sets = {"foot": (shape, foot),
+            "foot-3": (shape, (foot - 3.0).contiguous()),
+            "seam-9.5": (shape, (foot - 9.5).contiguous()),
+            "seam+(n-0.5)": (shape, (foot + (n - 0.5)).contiguous()),
+            "uniform": (shape, (torch.rand(foot.shape, generator=gen).to(dev) * n).contiguous())}
+    for small in ((5, 5, 5), (16, 24, 40)):
+        v = S.random_velocity(gen, small, amplitude=0.6, device=dev)
+        sets["x".join(map(str, small))] = (small, SL.trace_characteristic(v, 0.25))
+    sets["flat"] = (shape, foot.reshape(3, -1))
+    return sets
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=256)
@@ -529,7 +595,6 @@ def main(argv=None) -> int:
 
     v_smooth = S.random_velocity(gen, shape, amplitude=0.6, device=dev)
     foot = SL.trace_characteristic(v_smooth, 0.25, "cubic_bspline", 1.0)
-    queries = {"foot": foot, "foot-3": (foot - 3.0).contiguous()}
     plans = {"": I.build_plan(foot, "cubic_bspline"),
              ":bf16": I.build_plan(foot, "cubic_bspline", bf16)}
 
@@ -544,23 +609,44 @@ def main(argv=None) -> int:
     coef3 = PF.prefilter3d(stack3)
     extra = stack3[0]
     for sfx, plan in plans.items():
-        for coef in (coef1, coef3):
-            k = 1 if coef.dim() == 3 else coef.shape[0]
-            plan_check("apply_plan" + sfx, f"apply_plan{sfx} K={k}",
-                       K.apply_plan(coef, plan), K.apply_plan_plain(coef, plan))
         for epi in ("inc_state", "inc_adjoint"):
             plan_check(f"apply_plan_fused:{epi}{sfx}", f"apply_plan_fused {epi}{sfx}",
                        K.apply_plan_fused(coef2, plan, extra, epi, 0.25),
                        K.apply_plan_fused_plain(coef2, plan, extra, epi, 0.25))
-    for basis in K4_BASES:
-        for sfx, wd in (("", None), (":bf16", bf16)):
-            for coef in (coef1, coef2):
-                k = 1 if coef.dim() == 3 else coef.shape[0]
-                for qname, q in queries.items():
-                    plan_check(f"interp3d:{basis}{sfx}",
-                               f"interp3d {basis}{sfx} K={k} at {qname}",
+    # K2 and K4 at each query set, every basis and weight type, K = 1, 2, 3,
+    # with the share of K4's cubic blocks that staged their source box (the
+    # kernel's diagnostic counter; null on every path)
+    box_shares = {}
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    for qname, (fshape, q) in k24_query_sets(foot, args.seed, dev).items():
+        if fshape == shape:
+            fields = {1: coef1, 2: coef2, 3: coef3}
+        else:
+            fields = {k: torch.randn((k,) + fshape, generator=gen).to(dev) for k in (1, 2, 3)}
+            fields[1] = fields[1][0]
+        for basis in K4_BASES:
+            for sfx, wd in (("", None), (":bf16", bf16)):
+                for k, coef in fields.items():
+                    plan_check(f"interp3d:{basis}{sfx}", f"interp3d {basis}{sfx} K={k} at {qname}",
                                K.interp3d(coef, q, basis, wd),
                                K.interp3d_plain(coef, q, basis, wd))
+                if K.interp3d_tile(basis) == K.TILE_3D_BOX:
+                    counter.zero_()
+                    K.interp3d(fields[1], q, basis, wd, box_blocks=counter)
+                    box_shares[f"interp3d:{basis}{sfx} at {qname}"] = (
+                        int(counter.item()) / K.tile_blocks(q.shape[1:], K.TILE_3D_BOX))
+                plan = I.build_plan(q, basis, wd, shape=fshape)
+                for k, coef in fields.items():
+                    plan_check("apply_plan" + sfx, f"apply_plan {basis}{sfx} K={k} at {qname}",
+                               K.apply_plan(coef, plan), K.apply_plan_plain(coef, plan))
+                del plan
+        del fields
+    box_ok = [box_shares[f"interp3d:{b}{w} at {qname}"] >= 0.9 if qname != "uniform"
+              else box_shares[f"interp3d:{b}{w} at uniform"] == 0.0
+              for b in K4_BASES if K.interp3d_tile(b) == K.TILE_3D_BOX
+              for w in ("", ":bf16") for qname in ("foot", "uniform")]
+    checks.append(dict(case="K4 box share >= 0.9 at the footpoints, 0 at uniform queries",
+                       ok=all(box_ok)))
     # K6 at its four shapes and at each LM path's own prefill shape; the
     # plain version per head where the whole score tensor would pass
     # PLAIN_SCORES_MAX elements (case d)
@@ -608,7 +694,7 @@ def main(argv=None) -> int:
                            differ_share=differ, ok=not seen))
     torch.cuda.synchronize()
     ok3 = all(c["ok"] for c in checks)
-    emit("kernels", size=n, ok=ok3, checks=checks,
+    emit("kernels", size=n, ok=ok3, checks=checks, box_shares=box_shares,
          tolerances=dict(k1_rtol=K1_RTOL, k1_atol=K1_ATOL, plan_rel=PLAN_REL,
                          k5_rel=K5_REL, k6=K6_TOL, k6_bf16_differ=K6_BF16_DIFFER))
     if not ok3:
@@ -896,6 +982,7 @@ def main(argv=None) -> int:
                                m * (2 * TAP_OPS[4] + epi_ops)),
                 shape=list(coef2.shape))
     pad = SL.DISPLACEMENT_BOUND + 1
+    uniform_q = k24_query_sets(foot, args.seed, dev)["uniform"][1]
     for basis in K4_BASES:
         support = K.BASES[basis].support
         lib_call = {}
@@ -912,6 +999,8 @@ def main(argv=None) -> int:
                 lib = lib_call.get(coef.dim())
                 row[kf] = dict(
                     ms=timed(lambda c=coef: K.interp3d(c, foot, basis, wd), reps),
+                    ms_uniform_queries=timed(lambda c=coef: K.interp3d(c, uniform_q, basis, wd),
+                                             reps),
                     plain_ms=timed(lambda c=coef: K.interp3d_plain(c, foot, basis, wd),
                                    plain_reps),
                     library_ms=timed(lib[0], reps) if lib else None,
@@ -961,7 +1050,9 @@ def main(argv=None) -> int:
         causal=True, others=k6_rows)
     for key, row in rows.items():
         row["launches_on_paths"] = path_count(key)
-    emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows)
+    emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows,
+         ptxas_k2_k4=ptxas_kernels(_build.BUILD_LOG.get("interp3d", {}).get("ptxas", []),
+                                   ("apply_plan_kernel", "interp3d_kernel")))
 
     # 13. profile: device time by kernel group, and the idle share
     for label in ("solve", "solve_planfree"):

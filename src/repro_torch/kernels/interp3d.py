@@ -159,21 +159,82 @@ def _tap_product(wab: torch.Tensor, w3: torch.Tensor, vals: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _PLAN_ARGS = (_P, _P, _P, _P, _P, _P)
-_K2_ARGS = (_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int) + _PLAN_ARGS + (_P,)
+#: output dims (m1, m2, m3) and the block's tile (t1, t2, t3)
+_TILE_ARGS = (_I,) * 6
+_K2_ARGS = ((_P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I) + _PLAN_ARGS
+            + _TILE_ARGS + (_P,))
 _K3_ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int) + _PLAN_ARGS + (ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_float, _P)
+            _I) + _PLAN_ARGS + (_I, ctypes.c_float, ctypes.c_float, _P)
 _SIGNATURES = {
     "apply_plan_f32": _K2_ARGS,
     "apply_plan_bf16": _K2_ARGS,
     "apply_plan_fused_f32": _K3_ARGS,
     "apply_plan_fused_bf16": _K3_ARGS,
-    "interp3d_f32": (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                     _P),
+    "interp3d_f32": ((_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I)
+                     + _TILE_ARGS + (_P, _P)),
 }
+
+# ---------------------------------------------------------------------------
+# K2 / K4 block mapping and source box (``csrc/interp3d.cu``)
+# ---------------------------------------------------------------------------
+
+#: The output tile of one 256-thread K2 / K4 block, (x1, x2, x3), x3
+#: fastest: a 3D output takes TILE_3D (one query a thread), or TILE_3D_BOX
+#: for K4's cubic bases, which stage their source box (8 queries a thread,
+#: x1 rows 2 apart, so that one box serves 2048 queries); an output of any
+#: other rank is flattened to (1, 1, M) and takes TILE_FLAT. Linear K4 and K2
+#: stage no box: both measured slower with one on the H100 (PERF.md, kernel table).
+TILE_3D = (2, 4, 32)
+TILE_3D_BOX = (16, 4, 32)
+TILE_FLAT = (1, 1, 256)
+#: Floats of a block's shared-memory source box (``kBoxFloats``, 48 KB),
+#: and the most a box may span along x3 (``kBoxMaxE3``).
+BOX_FLOATS = 12288
+BOX_MAX_E3 = 64
+_GRID_YZ_MAX = 65535
+_INT_MAX = 2 ** 31 - 1
+
+
+def interp3d_tile(basis: str):
+    """K4's 3D output tile for ``basis``: the cubic bases stage a box."""
+    return TILE_3D_BOX if BASES[basis].support == 4 else TILE_3D
+
+
+def out_tiling(out_shape, tile3d=TILE_3D):
+    """``(dims, tile)``: the output as three dims and the block's tile of it,
+    as K2 and K4 map their blocks (``tile3d`` for a 3D output)."""
+    out_shape = tuple(int(n) for n in out_shape)
+    if len(out_shape) == 3 and all(
+            -(-d // t) <= _GRID_YZ_MAX for d, t in zip(out_shape[:2], tile3d[:2])):
+        return out_shape, tuple(tile3d)
+    return (1, 1, math.prod(out_shape)), TILE_FLAT
+
+
+def tile_blocks(out_shape, tile3d=TILE_3D) -> int:
+    """The number of K2 / K4 blocks over ``out_shape``."""
+    dims, tile = out_tiling(out_shape, tile3d)
+    return math.prod(-(-d // t) for d, t in zip(dims, tile))
+
+
+def _tile_args(out_shape, tile3d=TILE_3D):
+    dims, tile = out_tiling(out_shape, tile3d)
+    if dims[2] > _INT_MAX:
+        raise ValueError(f"output of {dims[2]} points exceeds the kernels' int range")
+    return dims + tile
+
+
+def _counter_arg(box_blocks, device):
+    """K4's diagnostic counter: None or a one-element int32 tensor on the
+    coefficients' device (its pointer)."""
+    if box_blocks is None:
+        return None
+    if (box_blocks.dtype != torch.int32 or box_blocks.numel() != 1
+            or box_blocks.device != device):
+        raise ValueError("box_blocks must be a one-element int32 tensor on the "
+                         "coefficients' device")
+    return box_blocks.data_ptr()
 
 #: weight dtype -> (suffix of the C entry points, suffix of the count key).
 _WEIGHT_ROUTES = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", ":bf16")}
@@ -268,9 +329,11 @@ def apply_plan(coef: torch.Tensor, plan) -> torch.Tensor:
     out_shape = tuple(plan.out_shape)
     out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
     lib = _build.library("interp3d", _SIGNATURES)
-    rc = getattr(lib, "apply_plan_" + c_suffix)(
-        coef.data_ptr(), out.data_ptr(), math.prod(lead), math.prod(plan.field_shape),
-        math.prod(out_shape), plan.support, *ptrs, _stream(coef))
+    with torch.cuda.device(coef.device):
+        rc = getattr(lib, "apply_plan_" + c_suffix)(
+            coef.data_ptr(), out.data_ptr(), math.prod(lead), math.prod(plan.field_shape),
+            math.prod(out_shape), plan.support, *ptrs, *_tile_args(out_shape),
+            _stream(coef))
     _build.check(rc, "apply_plan")
     counts.bump("apply_plan" + key_suffix)
     return out
@@ -316,10 +379,11 @@ def apply_plan_fused(coefs: torch.Tensor, plan, extra: torch.Tensor,
     ptrs, (c_suffix, key_suffix) = _plan_args(plan, coefs.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=coefs.device)
     lib = _build.library("interp3d", _SIGNATURES)
-    rc = getattr(lib, "apply_plan_fused_" + c_suffix)(
-        coefs.data_ptr(), extra.data_ptr(), out.data_ptr(),
-        math.prod(plan.field_shape), math.prod(out_shape), plan.support, *ptrs,
-        EPILOGUES[epilogue][0], float(0.5 * dt), float(dt), _stream(coefs))
+    with torch.cuda.device(coefs.device):
+        rc = getattr(lib, "apply_plan_fused_" + c_suffix)(
+            coefs.data_ptr(), extra.data_ptr(), out.data_ptr(),
+            math.prod(plan.field_shape), math.prod(out_shape), plan.support, *ptrs,
+            EPILOGUES[epilogue][0], float(0.5 * dt), float(dt), _stream(coefs))
     _build.check(rc, "apply_plan_fused")
     counts.bump("apply_plan_fused:" + epilogue + key_suffix)
     return out
@@ -370,7 +434,7 @@ def interp3d_plain(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspl
 
 
 def interp3d(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspline",
-             weight_dtype=None) -> torch.Tensor:
+             weight_dtype=None, *, box_blocks: torch.Tensor | None = None) -> torch.Tensor:
     """K4: interpolate ``coef`` ``(..., N1, N2, N3)`` (all leading fields
     share ``q``) at the index-unit query points ``q`` ``(3, *out_shape)``.
 
@@ -379,6 +443,10 @@ def interp3d(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspline",
     weights only. The wrap is global, so any ``q`` is exact; the Pallas
     kernel's ``displacement_bound`` (its halo-tile contract) has no
     counterpart here. Returns ``coef.shape[:-3] + out_shape`` in float32.
+
+    The cubic bases stage each block's source box in shared memory where it
+    fits (``interp3d_tile``); ``box_blocks``, a one-element int32 tensor on
+    the card, counts the blocks that did (a diagnostic).
     """
     _check_interp_args(coef, q, basis)
     name = "interp3d:" + basis
@@ -395,11 +463,14 @@ def interp3d(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspline",
     lead = tuple(coef.shape[:-3])
     out_shape = tuple(q.shape[1:])
     out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
+    counter = _counter_arg(box_blocks, coef.device)
     lib = _build.library("interp3d", _SIGNATURES)
-    rc = lib.interp3d_f32(coef.data_ptr(), q.data_ptr(), out.data_ptr(),
-                          math.prod(lead), n1, n2, n3, math.prod(out_shape),
-                          BASES[basis].selector, int(weight_dtype is not None),
-                          _stream(coef))
+    with torch.cuda.device(coef.device):
+        rc = lib.interp3d_f32(coef.data_ptr(), q.data_ptr(), out.data_ptr(),
+                              math.prod(lead), n1, n2, n3, math.prod(out_shape),
+                              BASES[basis].selector, int(weight_dtype is not None),
+                              *_tile_args(out_shape, interp3d_tile(basis)), counter,
+                              _stream(coef))
     _build.check(rc, "interp3d")
     counts.bump(name + key_suffix)
     return out

@@ -67,6 +67,36 @@ def _plan(dev, method, seed=1, offset=0.0, weight_dtype=None):
     return I.build_plan(_queries(dev, seed, offset), method, weight_dtype)
 
 
+#: K2 / K4 query sets: near the identity (also shifted by -3), across the
+#: periodic seam (-9.5 and +(n - 0.5)), uniform over a grid larger than the
+#: box budget (every block's source box over budget), on 5^3 and
+#: 16 x 24 x 40 fields, a flattened output, and ``_queries``' +-3 noise
+#: ("wide") and the same shifted by -9.5, where a 16 x 4 x 32 tile's box is
+#: over budget and the shorter last x1 tile's is not.
+QUERY_SETS = ["near", "near-3", "seam_lo", "seam_hi", "uniform", "n5", "n16x24x40", "flat",
+              "wide", "wide-9.5"]
+QUERY_SHAPES = {"n5": (5, 5, 5), "n16x24x40": (16, 24, 40), "uniform": (24, 24, 32)}
+
+
+def _query_set(kind, dev, seed=7):
+    """(field shape, query points) of one query set."""
+    if kind in ("wide", "wide-9.5"):
+        return SHAPE, _queries(dev, seed, -9.5 if kind == "wide-9.5" else 0.0)
+    shape = QUERY_SHAPES.get(kind, SHAPE)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.stack(torch.meshgrid(*[torch.arange(n, dtype=torch.float32) for n in shape],
+                                   indexing="ij"))
+    n = torch.tensor(shape, dtype=torch.float32).reshape(3, 1, 1, 1)
+    if kind == "uniform":
+        q = torch.rand((3,) + shape, generator=gen) * n
+    else:
+        q = x + 1.5 * (2 * torch.rand((3,) + shape, generator=gen) - 1)
+        q = {"near-3": q - 3.0, "seam_lo": q - 9.5, "seam_hi": q + (n - 0.5)}.get(kind, q)
+    if kind == "flat":
+        q = q.reshape(3, -1)
+    return shape, q.contiguous().to(dev)
+
+
 def _assert_scaled(got, ref):
     assert float((got - ref).abs().max()) <= 1e-5 * max(float(ref.abs().max()), 1.0)
 
@@ -115,11 +145,13 @@ def test_k5_matches_plain(cuda, axis):
 
 @pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("method", I.METHODS)
-@pytest.mark.parametrize("offset", [0.0, -3.0])
-def test_k2_matches_plain(cuda, method, offset, weight_dtype):
-    plan = _plan(cuda, method, offset=offset, weight_dtype=weight_dtype)
-    for lead in ((), (3,)):
-        coef = _randn(lead + SHAPE, 2, cuda)
+@pytest.mark.parametrize("kind", QUERY_SETS)
+def test_k2_matches_plain(cuda, method, kind, weight_dtype):
+    """K = 1, 2, 3 fields."""
+    shape, q = _query_set(kind, cuda, seed=1)
+    plan = I.build_plan(q, method, weight_dtype, shape=shape)
+    for lead in ((), (2,), (3,)):
+        coef = _randn(lead + shape, 2, cuda)
         _assert_scaled(K.apply_plan(coef, plan), K.apply_plan_plain(coef, plan))
 
 
@@ -136,14 +168,41 @@ def test_k3_matches_plain(cuda, epilogue, method, weight_dtype):
 
 @pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("basis", I.METHODS)
-@pytest.mark.parametrize("offset", [0.0, -3.0, -9.5])
-def test_k4_matches_plain(cuda, basis, offset, weight_dtype):
-    """K = 1 and K = 2 fields, queries inside and past the Pallas bound."""
-    q = _queries(cuda, seed=7, offset=offset)
-    for lead in ((), (2,)):
-        coef = _randn(lead + SHAPE, 8, cuda)
+@pytest.mark.parametrize("kind", QUERY_SETS)
+def test_k4_matches_plain(cuda, basis, kind, weight_dtype):
+    """K = 1, 2, 3 fields, queries inside and past the Pallas bound. The cubic
+    bases go through the shared-memory box and the global branch: every block
+    of the near-identity sets stages its box, no block of the uniform set
+    does, and at "wide-9.5" some blocks do and the others do not (as
+    ``tests/test_torch_interp3d_tiles.py`` emulates it)."""
+    shape, q = _query_set(kind, cuda)
+    for lead in ((), (2,), (3,)):
+        coef = _randn(lead + shape, 8, cuda)
         _assert_scaled(K.interp3d(coef, q, basis, weight_dtype),
                        K.interp3d_plain(coef, q, basis, weight_dtype))
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    K.interp3d(coef, q, basis, weight_dtype, box_blocks=counter)
+    share = int(counter.item()) / K.tile_blocks(q.shape[1:], K.interp3d_tile(basis))
+    if K.interp3d_tile(basis) != K.TILE_3D_BOX or kind == "uniform":
+        assert share == 0.0
+    elif kind == "wide-9.5":
+        assert 0.0 < share < 1.0
+    else:
+        assert share == 1.0
+
+
+def test_k4_on_two_cards(cuda):
+    """K4 cubic on a second card after the first: each launch sets the
+    kernel's shared-memory attribute in the current card's context."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    q = _queries(torch.device("cpu"), seed=7)
+    coef = _randn(SHAPE, 8, torch.device("cpu"))
+    for basis in ("cubic_bspline", "linear"):
+        ref = K.interp3d_plain(coef, q, basis)
+        for dev in ("cuda:0", "cuda:1", "cuda:0"):
+            got = K.interp3d(coef.to(dev), q.to(dev), basis)
+            _assert_scaled(got.cpu(), ref)
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
