@@ -7,16 +7,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   : the card's name, count and power limit.
 2. build    : nvcc of every ``src/repro_torch/csrc/*.cu`` for sm_90a, in
-              parallel, with ptxas' registers and spills per kernel.
+              parallel, with ptxas' registers and spills per kernel (parsed
+              for every K3 and K5 instantiation).
 3. kernels  : each kernel against its plain PyTorch version on the same
               inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
               K=3 stacks, then both modes on every axis of the stacks in
               K1_EDGE_SHAPES, where its tiling is awkward; K5 on a
               (size+8)-row halo-extended field and on a 5-field stack of
               size/4+8 rows, the one-rank and 4-slab
-              shapes; K3 with both epilogues, fp32 and bf16, on a cubic
-              plan from the footpoints of a smooth velocity; K2 and K4 for
-              each basis, fp32 and bf16 weights, K=1, 2 and 3, at each query
+              shapes, and on every axis of the K=3 stacks of K5_EDGE (n_loc
+              2 < R, part chunks, the scalar rows path); K3 with both
+              epilogues, fp32 and bf16, on a cubic plan from the footpoints
+              of a smooth velocity and on the slab path's plan (a field
+              with 2 x 6 halo rows on x1, gathered at its size^3 interior);
+              K2 and K4 for
+              each basis, fp32 and bf16 weights, K=1, 2 and 3, and K3 for
+              each basis (S = 4 and 2), both weight types and epilogues, at
+              each query
               set of ``k24_query_sets`` (those footpoints, shifted by -3 and
               across the periodic seam, uniform over the grid, on 5^3 and
               16x24x40 fields, as a 1D output), and the share of K4's cubic
@@ -189,6 +196,10 @@ K6_EDGE = [(3, 1), (3, 37), (3, 64), (3, 2000), (2, 4097)]
 #: goes round more than once), 72 and 282 rows (the slab prefilter's), x3 not
 #: a multiple of 4 (the scalar shared-memory path).
 K1_EDGE_SHAPES = [(3, 5, 5, 5), (3, 72, 72, 72), (3, 282, 256, 256), (2, 6, 9, 75)]
+#: K5 on each axis of a K=3 stack of 72 x 72 x 72 with that axis n_loc + 2R
+#: rows long: n_loc < R, a part chunk (61, 130), the scalar rows path
+#: (axis 2 at 61, 130 and 2).
+K5_EDGE_NLOC = (2, 61, 130)
 #: past this many score elements the K6 check runs the plain version per head
 PLAIN_SCORES_MAX = 2 ** 31
 #: LM serving paths: label -> (arch, requests, prompt tokens, generated).
@@ -535,8 +546,15 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all()
+    ptxas_k3_k5 = {
+        **ptxas_kernels(_build.BUILD_LOG.get("interp3d", {}).get("ptxas", []),
+                        ("apply_plan_fused",)),
+        **ptxas_kernels(_build.BUILD_LOG.get("pencil", {}).get("ptxas", []),
+                        ("stencil_valid",))}
     emit("build", seconds=time.perf_counter() - t0, dir=str(_build.build_dir()),
-         nvcc={k: v for k, v in _build.BUILD_LOG.items()})
+         nvcc={k: v for k, v in _build.BUILD_LOG.items()}, ptxas_k3_k5=ptxas_k3_k5,
+         k3_k5_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                               for v in ptxas_k3_k5.values()))
 
     # 3. kernels vs plain at size^3
     gen = torch.Generator().manual_seed(args.seed)
@@ -584,14 +602,23 @@ def main(argv=None) -> int:
     k5_inputs = {"1 rank": torch.randn((n + 8, n, n), generator=gen).to(dev),
                  "4 slabs, 5 fields": torch.randn((5, n // 4 + 8, n, n), generator=gen).to(dev)}
     k5_scale = 1.0 / (2 * math.pi / n)
-    for label, x in k5_inputs.items():
-        got = P.stencil_valid(x, 0, FD8.FD8_COEFFS, k5_scale)
-        ref = P.stencil_valid_plain(x, 0, FD8.FD8_COEFFS, k5_scale)
+
+    def k5_check(label, x, axis):
+        got = P.stencil_valid(x, axis, FD8.FD8_COEFFS, k5_scale)
+        ref = P.stencil_valid_plain(x, axis, FD8.FD8_COEFFS, k5_scale)
         err = max_err(got, ref)
         tol = K5_REL * max(float(ref.abs().max()), 1.0)
-        checks.append(dict(case=f"stencil_valid {label} {list(x.shape)}", max_abs_err=err,
-                           tol=tol, ok=err <= tol and got.shape == ref.shape))
+        checks.append(dict(case=f"stencil_valid {label} {list(x.shape)} axis {axis}",
+                           max_abs_err=err, tol=tol, ok=err <= tol and got.shape == ref.shape))
         errs["stencil_valid:fd8"] = max(errs.get("stencil_valid:fd8", 0.0), err)
+
+    for label, x in k5_inputs.items():
+        k5_check(label, x, 0)
+    for axis in range(3):
+        for n_loc in K5_EDGE_NLOC:
+            shp = [72, 72, 72]
+            shp[axis] = n_loc + 2 * len(FD8.FD8_COEFFS)
+            k5_check(f"n_loc {n_loc}", torch.randn([3] + shp, generator=edge_gen).to(dev), axis)
 
     v_smooth = S.random_velocity(gen, shape, amplitude=0.6, device=dev)
     foot = SL.trace_characteristic(v_smooth, 0.25, "cubic_bspline", 1.0)
@@ -608,11 +635,26 @@ def main(argv=None) -> int:
     coef2 = PF.prefilter3d(stack2)
     coef3 = PF.prefilter3d(stack3)
     extra = stack3[0]
-    for sfx, plan in plans.items():
+
+    def k3_check(label, coefs, plan, extra_, sfx):
         for epi in ("inc_state", "inc_adjoint"):
-            plan_check(f"apply_plan_fused:{epi}{sfx}", f"apply_plan_fused {epi}{sfx}",
-                       K.apply_plan_fused(coef2, plan, extra, epi, 0.25),
-                       K.apply_plan_fused_plain(coef2, plan, extra, epi, 0.25))
+            plan_check(f"apply_plan_fused:{epi}{sfx}", f"apply_plan_fused {epi}{sfx} {label}",
+                       K.apply_plan_fused(coefs, plan, extra_, epi, 0.25),
+                       K.apply_plan_fused_plain(coefs, plan, extra_, epi, 0.25))
+
+    for sfx, plan in plans.items():
+        k3_check("at the footpoints", coef2, plan, extra, sfx)
+    # K3 on the slab path's plan: one rank's field with SLAB_KW's halo rows
+    # on x1 (clamped), gathered at its size^3 interior
+    halo = SLAB_KW["halo"]
+    slab_foot = torch.stack([foot[0] + halo, foot[1], foot[2]])
+    slab_coef = PF.prefilter3d(torch.randn((2, n + 2 * halo, n, n), generator=gen).to(dev))
+    for sfx, wd in (("", None), (":bf16", bf16)):
+        slab_plan = I.build_plan(slab_foot, "cubic_bspline", wd, shape=(n + 2 * halo, n, n),
+                                 wrap=(False, True, True))
+        k3_check(f"on the slab plan {list(slab_coef.shape)}", slab_coef, slab_plan, extra, sfx)
+        del slab_plan
+    del slab_foot, slab_coef
     # K2 and K4 at each query set, every basis and weight type, K = 1, 2, 3,
     # with the share of K4's cubic blocks that staged their source box (the
     # kernel's diagnostic counter; null on every path)
@@ -624,6 +666,8 @@ def main(argv=None) -> int:
         else:
             fields = {k: torch.randn((k,) + fshape, generator=gen).to(dev) for k in (1, 2, 3)}
             fields[1] = fields[1][0]
+        q_extra = extra if tuple(q.shape[1:]) == shape else torch.randn(
+            tuple(q.shape[1:]), generator=gen).to(dev)
         for basis in K4_BASES:
             for sfx, wd in (("", None), (":bf16", bf16)):
                 for k, coef in fields.items():
@@ -639,6 +683,7 @@ def main(argv=None) -> int:
                 for k, coef in fields.items():
                     plan_check("apply_plan" + sfx, f"apply_plan {basis}{sfx} K={k} at {qname}",
                                K.apply_plan(coef, plan), K.apply_plan_plain(coef, plan))
+                k3_check(f"{basis} at {qname}", fields[2], plan, q_extra, sfx)
                 del plan
         del fields
     box_ok = [box_shares[f"interp3d:{b}{w} at {qname}"] >= 0.9 if qname != "uniform"

@@ -49,19 +49,23 @@
 // bf16), 112 B for K3 (88 B bf16). K4 reads 12 B of query instead of the
 // plan: 20 B/voxel for K = 1, 28 B for K = 2.
 //
-// Design of K2 and K4. 256-thread blocks over tiles of a 3D output, x3
+// Design of K2, K3 and K4. 256-thread blocks over tiles of a 3D output, x3
 // fastest, so that a warp reads consecutive query, plan and output addresses
 // and a block's taps lie in a small source box; any other output rank is
-// flattened and takes 1 x 1 x 256 tiles. The tile comes from the wrapper:
-// 2 x 4 x 32 (x1, x2, x3), one query a thread, or 16 x 4 x 32 for K4's cubic
-// bases, which stage their box, 8 queries a thread (x1 rows 2 apart). Each
-// thread loads (K2) or computes (K4) a query's indices and weights once and
-// reuses them for all K fields. The register budget (__launch_bounds__:
-// kMinBlocks = 4 resident blocks, 64 registers, 32 warps an SM; 6 blocks and
-// 40 registers for K4 linear, whose 8 taps need no more) replaces the 255
-// registers and 8 warps of the first design; fence_regs keeps the compiler
-// from keeping the S^2 weight products of every field live at once, which
-// spilled.
+// flattened and takes 1 x 1 x 256 tiles. The output may be smaller than the
+// field (the slab solve's plans gather a halo-extended field at its
+// interior): only the plan's indices address the field. The tile comes from
+// the wrapper: 2 x 4 x 32 (x1, x2, x3), one query a thread, or 16 x 4 x 32
+// for K4's cubic bases, which stage their box, 8 queries a thread (x1 rows 2
+// apart). Each thread loads (K2, K3) or computes (K4) a query's indices and
+// weights once and reuses them for all K fields. K3 gathers its two fields
+// in one pass over the taps, the two loads of a tap issued together under
+// one tap weight. The register budget (__launch_bounds__: kMinBlocks = 4
+// resident blocks, 64 registers, 32 warps an SM; 6 blocks and 40 registers
+// for K4 linear, whose 8 taps need no more) replaces the 255 registers and 8
+// warps of the first design; fence_regs keeps the compiler from keeping the
+// S^2 weight products of every field live at once across K2's and K4's field
+// loops, which spilled.
 //
 // K4's source box (the cubic bases): the block takes the min and max of
 // floor(q) + offset on each axis over its 2048 queries (a block reduction)
@@ -89,9 +93,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // threads of a K2 / K4 block (8 warps) and of K3
+constexpr int kThreads = 256;     // threads of a K2 / K3 / K4 block (8 warps)
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 4;     // resident K2 / K4 blocks per SM: <= 64 registers
+constexpr int kMinBlocks = 4;     // resident K2 / K3 / K4 blocks per SM: <= 64 registers
 constexpr int kMinBlocksS2 = 6;   // K4 linear (8 taps): <= 40 registers
 constexpr int kBoxFloats = 12288;  // a block's shared-memory source box (48 KB)
 constexpr int kBoxMaxE3 = 64;     // the box's x3 extent: two columns a lane
@@ -362,27 +366,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// K3: one output a thread of a 3D tile (as K2). Both fields are gathered in
+// one pass, in _fused_body's loop order a -> b -> c: each tap weight
+// (wab * w3[c]) is formed once, and both fields' loads at the tap's index
+// are issued together; two gathers in turn spilled ~100 B at this register
+// budget. Per field the arithmetic is K2's (acc + (wab * w3[c]) * f), so
+// each sum is what the field's own gather gives.
 template <int S, typename W>
-__global__ void apply_plan_fused_kernel(const float* __restrict__ coefs,
-                                        const float* __restrict__ extra,
-                                        float* __restrict__ out,
-                                        long long nfield, long long m,
-                                        const int* __restrict__ i1,
-                                        const int* __restrict__ i2,
-                                        const int* __restrict__ i3,
-                                        const W* __restrict__ w1,
-                                        const W* __restrict__ w2,
-                                        const W* __restrict__ w3,
-                                        int epilogue, float half_dt, float dt) {
-  long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (p >= m) return;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    apply_plan_fused_kernel(const float* __restrict__ coefs, const float* __restrict__ extra,
+                            float* __restrict__ out, long long nfield, int m1, int m2,
+                            int m3, const int* __restrict__ i1, const int* __restrict__ i2,
+                            const int* __restrict__ i3, const W* __restrict__ w1,
+                            const W* __restrict__ w2, const W* __restrict__ w3,
+                            int epilogue, float half_dt, float dt) {
+  const OutVoxel o(m1, m2, m3);
+  if (!o.valid) return;
+  const long long m = static_cast<long long>(m1) * m2 * m3;
   PlanRegs<S, W> r;
-  r.load(i1, i2, i3, w1, w2, w3, m, p);
-  const float a0 = r.gather(coefs);
-  const float a1 = r.gather(coefs + nfield);
-  const float e = extra[p];
-  out[p] = epilogue == 0 ? a0 + half_dt * (a1 + e)
-                         : a0 + half_dt * (a1 + e * (a0 + dt * a1));
+  r.load(i1, i2, i3, w1, w2, w3, m, o.p);
+  const float* __restrict__ f1 = coefs + nfield;
+  float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+  for (int a = 0; a < S; ++a) {
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const int iab = r.i1[a] + r.i2[b];
+      const float wab = WeightType<W>::pair(r.w1[a], r.w2[b]);
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        const int i = iab + r.i3[c];
+        const float v0 = __ldg(coefs + i);
+        const float v1 = __ldg(f1 + i);
+        const float wabc = wab * r.w3[c];
+        a0 = a0 + wabc * v0;
+        a1 = a1 + wabc * v1;
+      }
+    }
+  }
+  const float e = extra[o.p];
+  out[o.p] = epilogue == 0 ? a0 + half_dt * (a1 + e)
+                           : a0 + half_dt * (a1 + e * (a0 + dt * a1));
 }
 
 // ---------------------------------------------------------------------------
@@ -569,23 +593,28 @@ int launch_apply_plan(const float* coef, float* out, int nfields, long long nfie
 
 template <typename W>
 int launch_apply_plan_fused(const float* coefs, const float* extra, float* out,
-                            long long nfield, long long m, int support,
-                            const int* i1, const int* i2, const int* i3,
-                            const void* w1, const void* w2, const void* w3,
-                            int epilogue, float half_dt, float dt, void* stream) {
-  if (epilogue != 0 && epilogue != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                            long long nfield, long long m, int support, const int* i1,
+                            const int* i2, const int* i3, const void* w1, const void* w2,
+                            const void* w3, int epilogue, float half_dt, float dt, int m1,
+                            int m2, int m3, int t1, int t2, int t3, void* stream) {
+  if (epilogue != 0 && epilogue != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
+  dim3 grid, block;
+  int reps = 0;
+  if (!tiled_launch(m, m1, m2, m3, t1, t2, t3, &grid, &block, &reps) || reps != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const W* v1 = static_cast<const W*>(w1);
   const W* v2 = static_cast<const W*>(w2);
   const W* v3 = static_cast<const W*>(w3);
   if (support == 4) {
-    apply_plan_fused_kernel<4, W><<<blocks_for(m, kThreads), kThreads, 0, s>>>(
-        coefs, extra, out, nfield, m, i1, i2, i3, v1, v2, v3, epilogue, half_dt, dt);
+    apply_plan_fused_kernel<4, W><<<grid, block, 0, s>>>(coefs, extra, out, nfield, m1, m2,
+                                                        m3, i1, i2, i3, v1, v2, v3, epilogue,
+                                                        half_dt, dt);
   } else if (support == 2) {
-    apply_plan_fused_kernel<2, W><<<blocks_for(m, kThreads), kThreads, 0, s>>>(
-        coefs, extra, out, nfield, m, i1, i2, i3, v1, v2, v3, epilogue, half_dt, dt);
+    apply_plan_fused_kernel<2, W><<<grid, block, 0, s>>>(coefs, extra, out, nfield, m1, m2,
+                                                        m3, i1, i2, i3, v1, v2, v3, epilogue,
+                                                        half_dt, dt);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -654,28 +683,27 @@ extern "C" int apply_plan_bf16(const float* coef, float* out, int nfields,
                                           i3, w1, w2, w3, m1, m2, m3, t1, t2, t3, stream);
 }
 
-extern "C" int apply_plan_fused_f32(const float* coefs, const float* extra,
-                                    float* out, long long nfield, long long m,
-                                    int support, const int* i1, const int* i2,
-                                    const int* i3, const void* w1,
-                                    const void* w2, const void* w3,
-                                    int epilogue, float half_dt, float dt,
-                                    void* stream) {
-  return launch_apply_plan_fused<float>(coefs, extra, out, nfield, m, support, i1,
-                                        i2, i3, w1, w2, w3, epilogue, half_dt, dt,
-                                        stream);
+// K3: (m1, m2, m3) and (t1, t2, t3) as for K2.
+extern "C" int apply_plan_fused_f32(const float* coefs, const float* extra, float* out,
+                                    long long nfield, long long m, int support,
+                                    const int* i1, const int* i2, const int* i3,
+                                    const void* w1, const void* w2, const void* w3,
+                                    int epilogue, float half_dt, float dt, int m1, int m2,
+                                    int m3, int t1, int t2, int t3, void* stream) {
+  return launch_apply_plan_fused<float>(coefs, extra, out, nfield, m, support, i1, i2, i3,
+                                        w1, w2, w3, epilogue, half_dt, dt, m1, m2, m3, t1,
+                                        t2, t3, stream);
 }
 
-extern "C" int apply_plan_fused_bf16(const float* coefs, const float* extra,
-                                     float* out, long long nfield, long long m,
-                                     int support, const int* i1, const int* i2,
-                                     const int* i3, const void* w1,
-                                     const void* w2, const void* w3,
-                                     int epilogue, float half_dt, float dt,
-                                     void* stream) {
-  return launch_apply_plan_fused<__nv_bfloat16>(coefs, extra, out, nfield, m,
-                                                support, i1, i2, i3, w1, w2, w3,
-                                                epilogue, half_dt, dt, stream);
+extern "C" int apply_plan_fused_bf16(const float* coefs, const float* extra, float* out,
+                                     long long nfield, long long m, int support,
+                                     const int* i1, const int* i2, const int* i3,
+                                     const void* w1, const void* w2, const void* w3,
+                                     int epilogue, float half_dt, float dt, int m1, int m2,
+                                     int m3, int t1, int t2, int t3, void* stream) {
+  return launch_apply_plan_fused<__nv_bfloat16>(coefs, extra, out, nfield, m, support, i1,
+                                                i2, i3, w1, w2, w3, epilogue, half_dt, dt,
+                                                m1, m2, m3, t1, t2, t3, stream);
 }
 
 // K4: (m1, m2, m3) and (t1, t2, t3) as for K2; box_blocks null or a counter

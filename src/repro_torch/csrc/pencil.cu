@@ -1,40 +1,56 @@
 // Periodic 1D stencil along one axis of a stack of 3D fields (kernel K1),
 // and its valid-mode counterpart on a halo-extended axis (kernel K5).
 //
-// Replaces the Pallas kernel `stencil_pencil` (src/repro/kernels/pencil.py:135,
-// body `_stencil_body` at :120). Two callers share it:
+// K1 `stencil_axis_f32` replaces the Pallas kernel `stencil_pencil`
+// (src/repro/kernels/pencil.py:135, body `_stencil_body` at :120). Two
+// callers share it:
 //   * FD8 first derivative, antisymmetric, radius 4, scale 1/h
 //       out = scale * sum_k c_k (f[i+k] - f[i-k])
 //   * cubic B-spline prefilter, symmetric, radius 7, three axis passes
 //       out = scale * (c0 f[i] + sum_k c_k (f[i+k] + f[i-k]))
 //
-// What bounds it on an H100: bytes. Per voxel it reads 4 B and writes 4 B
+// K5 `stencil_valid_f32` replaces `stencil_pencil_valid` (pencil.py:81,
+// body `_stencil_valid_body` at :65): the x1 FD8 derivative of the
+// slab-parallel solve, whose boundary rows come from a halo exchange instead
+// of a periodic wrap. The input has n + 2R rows on the stencil axis, the
+// output n; there is no wrap:
+//     out[i] = scale * sum_k c_k (f[i+R+k] - f[i+R-k])
+//
+// What bounds both on an H100: bytes. Per voxel they read 4 B and write 4 B
 // (8-15 taps, ~13-30 flops), far below the card's ~20 flop/B balance point,
-// so the least time is 8 B/voxel over 3.35 TB/s (40 us for one 256^3 field).
+// so the least time is 8 B/voxel over 3.35 TB/s (40 us for one 256^3 field;
+// K5 reads the 2R halo rows besides, 40.7 us at 264x256x256 -> 256^3).
 //
 // Design: a streaming halo kernel, one shape per kind of axis, with no index
-// division or wrap per tap. A field stack (B, N1, N2, N3) is seen as
-// (outer, n, inner) along the stencil axis.
+// division per voxel. A field stack (B, N1, N2, N3) is seen as (outer, n,
+// inner) along the stencil axis; a WRAP template flag selects K1's periodic
+// rows or K5's extended input (n + 2R rows, no wrap).
 //   * Strided axes (x1, x2: inner = N2 N3 or N3): each thread owns one
 //     column of the contiguous inner dimension (a warp reads 128 B rows,
 //     coalesced) and walks a chunk of kChunk = 64 outputs along the axis. It
 //     loads the kChunk + 2R rows it needs once, into a register window
-//     (fully unrolled, R a template parameter), wrapping the row index once
-//     per loaded row (start from the floor-mod of i0 - R, then a compare per
-//     row, so any n >= 1 works, n < R included), and computes every output
-//     from registers. Each input is read (64 + 2R)/64 times: 1.125 for FD8,
-//     1.22 for the prefilter, and neighbouring chunks of a column are
-//     neighbouring blocks, so their halo rows meet in L2. The chunk's tail
-//     past n is loaded (wrapped) but not stored.
+//     (fully unrolled, R a template parameter), and computes every output
+//     from registers. K1 wraps the row index once per loaded row (start from
+//     the floor-mod of i0 - R, then a compare per row, so any n >= 1 works,
+//     n < R included); the chunk's tail past n is loaded (wrapped) but not
+//     stored. K5 reads rows i0 .. i0 + kChunk + 2R - 1 of the extended input
+//     as they are and leaves the rows past its end unread. Each input is read
+//     (64 + 2R)/64 times: 1.125 for FD8, 1.22 for the prefilter, and
+//     neighbouring chunks of a column are neighbouring blocks, so their halo
+//     rows meet in L2.
 //   * The contiguous axis (x3): a CTA holds whole x3 rows in shared memory,
-//     each extended by its wrapped halo of R values on both sides (taken
-//     once per row), loaded with coalesced float4 loads when n3 % 4 == 0,
-//     then each thread computes four consecutive outputs from five aligned
-//     float4 shared-memory reads and stores them as one float4 (scalar loads,
-//     reads and stores otherwise).
+//     each extended by its halo of R values on both sides: K1 takes the
+//     wrapped halo once per row, K5 stages its n3 + 2R input values as they
+//     are. Loads are coalesced float4 loads when the rows allow it (n3 % 4 ==
+//     0, and R % 4 == 0 for K5's extended rows); then each thread computes
+//     four consecutive outputs from five aligned float4 shared-memory reads
+//     and stores them as one float4 (scalar loads, reads and stores
+//     otherwise).
 // Both keep the plain version's tap order (acc = c0 f or 0, then acc +=
-// c_k (f[+k] +- f[-k]) for k = 1..R, then * scale), so the two differ only
-// by FMA contraction.
+// c_k (f[+k] +- f[-k]) for k = 1..R, then * scale), so kernel and plain
+// version differ only by FMA contraction, and K5 on an exchanged slab gives
+// K1's periodic result on the interior rows. K5's instantiations are
+// kernels of their own name (stencil_valid_*), so a profile tells them apart.
 
 #include <climits>
 #include <cstdint>
@@ -49,39 +65,50 @@ struct Taps {
   float c[kMaxTaps];
 };
 
-// ---- K1, strided axes -----------------------------------------------------
+// ---- strided axes -----------------------------------------------------------
 
 constexpr int kChunk = 64;       // outputs per thread along a strided axis
 constexpr int kColThreads = 128; // columns per CTA
 
 // Grid: x = outer * chunks (chunk fastest), y = column blocks of `inner`.
-template <int R, bool SYM>
-__global__ void __launch_bounds__(kColThreads)
-stencil_strided_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
-                       long long inner, int chunks, Taps taps, float scale) {
+// n output rows; the input has n rows (WRAP) or n + 2R.
+template <int R, bool SYM, bool WRAP>
+__device__ __forceinline__ void strided_body(const float* __restrict__ f,
+                                             float* __restrict__ out, int n,
+                                             long long inner, int chunks, const Taps& taps,
+                                             float scale) {
   const long long col = static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x;
   if (col >= inner) return;
   const int chunk = static_cast<int>(blockIdx.x % static_cast<unsigned>(chunks));
   const long long o = blockIdx.x / static_cast<unsigned>(chunks);
-  const long long base = o * n * inner + col;
+  const int n_in = WRAP ? n : n + 2 * R;
   const int i0 = chunk * kChunk;
 
-  // w[r] = f[i0 - R + r], periodic: the row index wraps once per row.
-  int j = (i0 - R) % n;
-  if (j < 0) j += n;
-  const float* p = f + base + j * inner;
   float w[kChunk + 2 * R];
+  if constexpr (WRAP) {
+    // w[r] = f[i0 - R + r], periodic: the row index wraps once per row.
+    const long long base = o * n * inner + col;
+    int j = (i0 - R) % n;
+    if (j < 0) j += n;
+    const float* p = f + base + j * inner;
 #pragma unroll
-  for (int r = 0; r < kChunk + 2 * R; ++r) {
-    w[r] = *p;
-    p += inner;
-    if (++j == n) {
-      j = 0;
-      p = f + base;
+    for (int r = 0; r < kChunk + 2 * R; ++r) {
+      w[r] = *p;
+      p += inner;
+      if (++j == n) {
+        j = 0;
+        p = f + base;
+      }
     }
+  } else {
+    // w[r] = f_ext[i0 + r]; rows past the extended input are not read.
+    const float* p = f + (o * n_in + i0) * inner + col;
+    const int avail = n_in - i0;
+#pragma unroll
+    for (int r = 0; r < kChunk + 2 * R; ++r) w[r] = r < avail ? p[r * inner] : 0.0f;
   }
   const int n_out = n - i0 < kChunk ? n - i0 : kChunk;
-  float* q = out + base + static_cast<long long>(i0) * inner;
+  float* q = out + (o * n + i0) * inner + col;
 #pragma unroll
   for (int t = 0; t < kChunk; ++t) {
     if (t < n_out) {
@@ -98,6 +125,20 @@ stencil_strided_kernel(const float* __restrict__ f, float* __restrict__ out, int
 }
 
 template <int R, bool SYM>
+__global__ void __launch_bounds__(kColThreads)
+stencil_strided_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
+                       long long inner, int chunks, Taps taps, float scale) {
+  strided_body<R, SYM, true>(f, out, n, inner, chunks, taps, scale);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kColThreads)
+stencil_valid_strided_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
+                             long long inner, int chunks, Taps taps, float scale) {
+  strided_body<R, false, false>(f, out, n, inner, chunks, taps, scale);
+}
+
+template <int R, bool SYM, bool WRAP>
 int strided(const float* f, float* out, long long outer, int n, long long inner,
             const Taps& taps, float scale, cudaStream_t stream) {
   const int chunks = (n + kChunk - 1) / kChunk;
@@ -108,12 +149,39 @@ int strided(const float* f, float* out, long long outer, int n, long long inner,
   if (col_blocks > 65535 || x_blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(x_blocks), static_cast<unsigned>(col_blocks));
-  stencil_strided_kernel<R, SYM><<<grid, threads, 0, stream>>>(f, out, n, inner, chunks,
-                                                                 taps, scale);
+  if constexpr (WRAP)
+    stencil_strided_kernel<R, SYM><<<grid, threads, 0, stream>>>(f, out, n, inner, chunks,
+                                                                   taps, scale);
+  else
+    stencil_valid_strided_kernel<R><<<grid, threads, 0, stream>>>(f, out, n, inner, chunks,
+                                                                    taps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- K1, the contiguous axis ----------------------------------------------
+// Radius 0..8 (K1: R = ntaps - 1 symmetric, ntaps antisymmetric; K5: R =
+// ntaps, antisymmetric, no wrap).
+template <bool SYM, bool WRAP>
+int strided_dispatch(int radius, const float* f, float* out, long long outer, int n,
+                     long long inner, const Taps& t, float scale, cudaStream_t s) {
+  switch (radius) {
+    case 0:
+      if constexpr (SYM) return strided<0, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+      break;
+    case 1: return strided<1, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 2: return strided<2, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 3: return strided<3, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 4: return strided<4, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 5: return strided<5, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 6: return strided<6, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 7: return strided<7, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+    case 8:
+      if constexpr (!SYM) return strided<8, SYM, WRAP>(f, out, outer, n, inner, t, scale, s);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- the contiguous axis ----------------------------------------------------
 
 constexpr int kPad = 8;          // >= the largest radius, a multiple of 4
 constexpr int kRowThreads = 256;
@@ -136,35 +204,42 @@ __device__ __forceinline__ float taps_at(const float* w, int radius, const Taps&
   return acc * scale;
 }
 
-// One CTA of (bx, by) threads holds `by` rows of length n in shared memory,
-// row y at sm[y * (n + 2 kPad) + kPad + i] for i in -R .. n + R - 1.
-// VEC (n % 4 == 0, 16-byte aligned f and out): float4 loads, and each thread
-// computes four outputs 4c .. 4c + 3 from sm[4c - 8 .. 4c + 11].
-template <bool VEC, bool SYM>
-__global__ void __launch_bounds__(kRowThreads)
-stencil_rows_kernel(const float* __restrict__ f, float* __restrict__ out, long long rows,
-                    int n, int radius, Taps taps, float scale) {
+// One CTA of (bx, by) threads holds `by` rows of n outputs in shared memory,
+// row y at sm[y * (n + 2 kPad) + kPad + i] for i in -R .. n + R - 1. Input
+// rows hold n values (WRAP; the halo wraps) or n + 2R (the halo is there).
+// VEC (16-byte aligned f and out, n % 4 == 0 and, without WRAP, R % 4 == 0):
+// float4 loads, and each thread computes four outputs 4c .. 4c + 3 from
+// sm[4c - 8 .. 4c + 11].
+template <bool VEC, bool SYM, bool WRAP>
+__device__ __forceinline__ void rows_body(const float* __restrict__ f,
+                                          float* __restrict__ out, long long rows, int n,
+                                          int radius, const Taps& taps, float scale) {
   extern __shared__ float4 smem4[];
   const int ld = n + 2 * kPad;
+  const int n_in = WRAP ? n : n + 2 * radius;
   const long long row = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
   const bool live = row < rows;
   float* srow = reinterpret_cast<float*>(smem4) + threadIdx.y * ld + kPad;
-  const float* frow = f + row * n;
+  const float* frow = f + row * n_in;
+  // input value i goes to srow[i] (WRAP) or srow[i - R]
+  float* sdst = WRAP ? srow : srow - radius;
   if (live) {
     if (VEC) {
-      for (int c = threadIdx.x; c < n / 4; c += blockDim.x) {
+      for (int c = threadIdx.x; c < n_in / 4; c += blockDim.x) {
         const float4 x = *reinterpret_cast<const float4*>(frow + 4 * c);
-        *reinterpret_cast<float4*>(srow + 4 * c) = x;
+        *reinterpret_cast<float4*>(sdst + 4 * c) = x;
       }
     } else {
-      for (int c = threadIdx.x; c < n; c += blockDim.x) srow[c] = frow[c];
+      for (int c = threadIdx.x; c < n_in; c += blockDim.x) sdst[c] = frow[c];
     }
-    // the halo: -R .. -1 and n .. n + R - 1, wrapped once each
-    for (int h = threadIdx.x; h < 2 * radius; h += blockDim.x) {
-      const int i = h < radius ? h - radius : n + h - radius;
-      int src = i % n;
-      if (src < 0) src += n;
-      srow[i] = frow[src];
+    if (WRAP) {
+      // the halo: -R .. -1 and n .. n + R - 1, wrapped once each
+      for (int h = threadIdx.x; h < 2 * radius; h += blockDim.x) {
+        const int i = h < radius ? h - radius : n + h - radius;
+        int src = i % n;
+        if (src < 0) src += n;
+        srow[i] = frow[src];
+      }
     }
   }
   __syncthreads();
@@ -200,8 +275,27 @@ stencil_rows_kernel(const float* __restrict__ f, float* __restrict__ out, long l
 }
 
 template <bool VEC, bool SYM>
+__global__ void __launch_bounds__(kRowThreads)
+stencil_rows_kernel(const float* __restrict__ f, float* __restrict__ out, long long rows,
+                    int n, int radius, Taps taps, float scale) {
+  rows_body<VEC, SYM, true>(f, out, rows, n, radius, taps, scale);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kRowThreads)
+stencil_valid_rows_kernel(const float* __restrict__ f, float* __restrict__ out,
+                          long long rows, int n, int radius, Taps taps, float scale) {
+  rows_body<VEC, false, false>(f, out, rows, n, radius, taps, scale);
+}
+
+template <bool VEC, bool SYM, bool WRAP>
 int rows_launch(const float* f, float* out, long long rows, int n, int radius,
                 const Taps& taps, float scale, cudaStream_t stream) {
+  void (*kernel)(const float*, float*, long long, int, int, Taps, float);
+  if constexpr (WRAP)
+    kernel = stencil_rows_kernel<VEC, SYM>;
+  else
+    kernel = stencil_valid_rows_kernel<VEC>;
   const int q = VEC ? n / 4 : n;
   const int bx = q < kRowThreads ? q : kRowThreads;
   const int by = kRowThreads / bx;
@@ -210,130 +304,60 @@ int rows_launch(const float* f, float* out, long long rows, int n, int radius,
   if (blocks > INT_MAX || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stencil_rows_kernel<VEC, SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  stencil_rows_kernel<VEC, SYM><<<static_cast<unsigned>(blocks), dim3(bx, by), smem, stream>>>(
-      f, out, rows, n, radius, taps, scale);
+  kernel<<<static_cast<unsigned>(blocks), dim3(bx, by), smem, stream>>>(f, out, rows, n,
+                                                                        radius, taps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// n outputs a row.
+template <bool SYM, bool WRAP>
 int rows_dispatch(const float* f, float* out, long long rows, int n, int radius,
-                  int symmetric, const Taps& taps, float scale, cudaStream_t stream) {
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
+                  const Taps& taps, float scale, cudaStream_t stream) {
+  const bool vec = n % 4 == 0 && (WRAP || radius % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec)
-    return symmetric ? rows_launch<true, true>(f, out, rows, n, radius, taps, scale, stream)
-                     : rows_launch<true, false>(f, out, rows, n, radius, taps, scale, stream);
-  return symmetric ? rows_launch<false, true>(f, out, rows, n, radius, taps, scale, stream)
-                   : rows_launch<false, false>(f, out, rows, n, radius, taps, scale, stream);
+  return vec ? rows_launch<true, SYM, WRAP>(f, out, rows, n, radius, taps, scale, stream)
+             : rows_launch<false, SYM, WRAP>(f, out, rows, n, radius, taps, scale, stream);
 }
 
-// R = ntaps - 1 (symmetric) or ntaps (antisymmetric), 1..8 taps.
-int strided_dispatch(int ntaps, int symmetric, const float* f, float* out, long long outer,
-                     int n, long long inner, const Taps& t, float scale, cudaStream_t s) {
-  if (symmetric) {
-    switch (ntaps - 1) {
-      case 0: return strided<0, true>(f, out, outer, n, inner, t, scale, s);
-      case 1: return strided<1, true>(f, out, outer, n, inner, t, scale, s);
-      case 2: return strided<2, true>(f, out, outer, n, inner, t, scale, s);
-      case 3: return strided<3, true>(f, out, outer, n, inner, t, scale, s);
-      case 4: return strided<4, true>(f, out, outer, n, inner, t, scale, s);
-      case 5: return strided<5, true>(f, out, outer, n, inner, t, scale, s);
-      case 6: return strided<6, true>(f, out, outer, n, inner, t, scale, s);
-      case 7: return strided<7, true>(f, out, outer, n, inner, t, scale, s);
-    }
-  } else {
-    switch (ntaps) {
-      case 1: return strided<1, false>(f, out, outer, n, inner, t, scale, s);
-      case 2: return strided<2, false>(f, out, outer, n, inner, t, scale, s);
-      case 3: return strided<3, false>(f, out, outer, n, inner, t, scale, s);
-      case 4: return strided<4, false>(f, out, outer, n, inner, t, scale, s);
-      case 5: return strided<5, false>(f, out, outer, n, inner, t, scale, s);
-      case 6: return strided<6, false>(f, out, outer, n, inner, t, scale, s);
-      case 7: return strided<7, false>(f, out, outer, n, inner, t, scale, s);
-      case 8: return strided<8, false>(f, out, outer, n, inner, t, scale, s);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+// One stencil along `axis` of a (batch, n1, n2, n3) input: periodic (WRAP),
+// or valid with an output 2R shorter on `axis`.
+template <bool SYM, bool WRAP>
+int stencil_launch(const float* f, float* out, long long batch, int n1, int n2, int n3,
+                   int axis, int radius, const Taps& t, float scale, cudaStream_t s) {
+  const int n = (axis == 0 ? n1 : axis == 1 ? n2 : n3) - (WRAP ? 0 : 2 * radius);
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch * n1 * static_cast<long long>(n2) * n3 == 0) return 0;
+  if (axis == 2)
+    return rows_dispatch<SYM, WRAP>(f, out, batch * n1 * static_cast<long long>(n2), n,
+                                    radius, t, scale, s);
+  const long long outer = axis == 0 ? batch : batch * n1;
+  const long long inner = axis == 0 ? static_cast<long long>(n2) * n3 : n3;
+  return strided_dispatch<SYM, WRAP>(radius, f, out, outer, n, inner, t, scale, s);
 }
 
-// Kernel K5: valid-mode antisymmetric stencil along one axis of a stack of
-// halo-extended 3D fields.
-//
-// Replaces the Pallas kernel `stencil_pencil_valid`
-// (src/repro/kernels/pencil.py:81, body `_stencil_valid_body` at :65): the
-// x1 FD8 derivative of the slab-parallel solve, whose boundary rows come from
-// a halo exchange instead of a periodic wrap. The input has n + 2R rows on
-// the stencil axis, the output n; there is no wrap:
-//     out[i] = scale * sum_k c_k (f[i+R+k] - f[i+R-k])
-//
-// What bounds it on an H100: bytes, as K1. Per output voxel it reads a
-// little more than 4 B (the 2R halo rows once more) and writes 4 B, with
-// 3R flops; at 264x256x256 -> 256x256x256 fp32 the least time is 136.3 MB
-// over 3.35 TB/s, 40.7 us.
-//
-// Design: one thread per output voxel, neighbouring threads on neighbouring
-// x3 addresses (coalesced tap loads, as K1); the 2R reads along the axis are
-// left to L1/L2. No index wraps: every tap lies inside the extended input.
-// The sum runs in the plain version's tap order (zero, then k = 1..R, then
-// the scale), the same arithmetic as K1's antisymmetric branch, so K5 on an
-// exchanged slab gives K1's periodic result on the interior rows.
-__global__ void stencil_valid_kernel(const float* __restrict__ f,
-                                     float* __restrict__ out, long long total,
-                                     int o1, int o2, int o3, int axis,
-                                     int radius, Taps taps, float scale) {
-  long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (g >= total) return;
-  // Output coordinates (b, i1, i2, i3); the input has 2R more rows on `axis`.
-  const int i3 = static_cast<int>(g % o3);
-  long long t = g / o3;
-  const int i2 = static_cast<int>(t % o2);
-  t /= o2;
-  const int i1 = static_cast<int>(t % o1);
-  const long long b = t / o1;
-  const int n1 = o1 + (axis == 0 ? 2 * radius : 0);
-  const int n2 = o2 + (axis == 1 ? 2 * radius : 0);
-  const int n3 = o3 + (axis == 2 ? 2 * radius : 0);
-  const long long stride = axis == 0 ? static_cast<long long>(n2) * n3
-                                     : (axis == 1 ? n3 : 1);
-  const long long c = ((b * n1 + i1 + (axis == 0 ? radius : 0)) * n2 + i2 +
-                       (axis == 1 ? radius : 0)) * n3 + i3 +
-                      (axis == 2 ? radius : 0);
-  float acc = 0.0f;
-  for (int k = 1; k <= radius; ++k) {
-    const float fp = f[c + k * stride];
-    const float fm = f[c - k * stride];
-    acc = acc + taps.c[k - 1] * (fp - fm);
-  }
-  out[g] = acc * scale;
+Taps make_taps(const float* taps, int ntaps) {
+  Taps t = {};
+  for (int k = 0; k < ntaps; ++k) t.c[k] = taps[k];
+  return t;
 }
 
 }  // namespace
 
+// K5: (n1, n2, n3) are the input's sizes; the output is 2R = 2 ntaps shorter
+// on `axis`.
 extern "C" int stencil_valid_f32(const float* f, float* out, long long batch,
                                  int n1, int n2, int n3, int axis,
                                  const float* taps, int ntaps, float scale,
                                  void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps || axis < 0 || axis > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  Taps t = {};
-  for (int k = 0; k < ntaps; ++k) t.c[k] = taps[k];
-  // (n1, n2, n3) are the input's sizes; the output is 2R shorter on `axis`.
-  const int o1 = axis == 0 ? n1 - 2 * ntaps : n1;
-  const int o2 = axis == 1 ? n2 - 2 * ntaps : n2;
-  const int o3 = axis == 2 ? n3 - 2 * ntaps : n3;
-  if (o1 <= 0 || o2 <= 0 || o3 <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = batch * o1 * static_cast<long long>(o2) * o3;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  stencil_valid_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      f, out, total, o1, o2, o3, axis, ntaps, t, scale);
-  return static_cast<int>(cudaGetLastError());
+  return stencil_launch<false, false>(f, out, batch, n1, n2, n3, axis, ntaps,
+                                      make_taps(taps, ntaps), scale,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int stencil_axis_f32(const float* f, float* out, long long batch,
@@ -342,15 +366,9 @@ extern "C" int stencil_axis_f32(const float* f, float* out, long long batch,
                                 float scale, void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps || axis < 0 || axis > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  Taps t = {};
-  for (int k = 0; k < ntaps; ++k) t.c[k] = taps[k];
-  if (batch * n1 * static_cast<long long>(n2) * n3 == 0) return 0;
+  const Taps t = make_taps(taps, ntaps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (axis == 2)
-    return rows_dispatch(f, out, batch * n1 * static_cast<long long>(n2), n3,
-                         symmetric ? ntaps - 1 : ntaps, symmetric, t, scale, s);
-  const long long outer = axis == 0 ? batch : batch * n1;
-  const int n = axis == 0 ? n1 : n2;
-  const long long inner = axis == 0 ? static_cast<long long>(n2) * n3 : n3;
-  return strided_dispatch(ntaps, symmetric, f, out, outer, n, inner, t, scale, s);
+  return symmetric
+             ? stencil_launch<true, true>(f, out, batch, n1, n2, n3, axis, ntaps - 1, t, scale, s)
+             : stencil_launch<false, true>(f, out, batch, n1, n2, n3, axis, ntaps, t, scale, s);
 }

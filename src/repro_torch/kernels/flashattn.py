@@ -96,9 +96,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = _build.library("flashattn", _SIGNATURES)
     fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_len, hd,
-            int(bool(causal)), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_len, hd,
+                int(bool(causal)), 1.0 / math.sqrt(hd),
+                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     counts.bump("flash_attention")
     return out

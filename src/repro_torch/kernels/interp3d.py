@@ -165,8 +165,8 @@ _PLAN_ARGS = (_P, _P, _P, _P, _P, _P)
 _TILE_ARGS = (_I,) * 6
 _K2_ARGS = ((_P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I) + _PLAN_ARGS
             + _TILE_ARGS + (_P,))
-_K3_ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-            _I) + _PLAN_ARGS + (_I, ctypes.c_float, ctypes.c_float, _P)
+_K3_ARGS = ((_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I) + _PLAN_ARGS
+            + (_I, ctypes.c_float, ctypes.c_float) + _TILE_ARGS + (_P,))
 _SIGNATURES = {
     "apply_plan_f32": _K2_ARGS,
     "apply_plan_bf16": _K2_ARGS,
@@ -177,10 +177,10 @@ _SIGNATURES = {
 }
 
 # ---------------------------------------------------------------------------
-# K2 / K4 block mapping and source box (``csrc/interp3d.cu``)
+# K2 / K3 / K4 block mapping and source box (``csrc/interp3d.cu``)
 # ---------------------------------------------------------------------------
 
-#: The output tile of one 256-thread K2 / K4 block, (x1, x2, x3), x3
+#: The output tile of one 256-thread K2 / K3 / K4 block, (x1, x2, x3), x3
 #: fastest: a 3D output takes TILE_3D (one query a thread), or TILE_3D_BOX
 #: for K4's cubic bases, which stage their source box (8 queries a thread,
 #: x1 rows 2 apart, so that one box serves 2048 queries); an output of any
@@ -204,7 +204,7 @@ def interp3d_tile(basis: str):
 
 def out_tiling(out_shape, tile3d=TILE_3D):
     """``(dims, tile)``: the output as three dims and the block's tile of it,
-    as K2 and K4 map their blocks (``tile3d`` for a 3D output)."""
+    as K2, K3 and K4 map their blocks (``tile3d`` for a 3D output)."""
     out_shape = tuple(int(n) for n in out_shape)
     if len(out_shape) == 3 and all(
             -(-d // t) <= _GRID_YZ_MAX for d, t in zip(out_shape[:2], tile3d[:2])):
@@ -213,7 +213,7 @@ def out_tiling(out_shape, tile3d=TILE_3D):
 
 
 def tile_blocks(out_shape, tile3d=TILE_3D) -> int:
-    """The number of K2 / K4 blocks over ``out_shape``."""
+    """The number of K2 / K3 / K4 blocks over ``out_shape``."""
     dims, tile = out_tiling(out_shape, tile3d)
     return math.prod(-(-d // t) for d, t in zip(dims, tile))
 
@@ -383,7 +383,8 @@ def apply_plan_fused(coefs: torch.Tensor, plan, extra: torch.Tensor,
         rc = getattr(lib, "apply_plan_fused_" + c_suffix)(
             coefs.data_ptr(), extra.data_ptr(), out.data_ptr(),
             math.prod(plan.field_shape), math.prod(out_shape), plan.support, *ptrs,
-            EPILOGUES[epilogue][0], float(0.5 * dt), float(dt), _stream(coefs))
+            EPILOGUES[epilogue][0], float(0.5 * dt), float(dt), *_tile_args(out_shape),
+            _stream(coefs))
     _build.check(rc, "apply_plan_fused")
     counts.bump("apply_plan_fused:" + epilogue + key_suffix)
     return out

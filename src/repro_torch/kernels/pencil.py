@@ -86,10 +86,11 @@ def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
     out = torch.empty_like(f)
     lib = _build.library("pencil", _SIGNATURES)
     tap_arr = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    rc = lib.stencil_axis_f32(
-        f.data_ptr(), out.data_ptr(), batch, n1, n2, n3, axis, tap_arr,
-        len(taps), int(bool(symmetric)), float(scale),
-        torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):
+        rc = lib.stencil_axis_f32(
+            f.data_ptr(), out.data_ptr(), batch, n1, n2, n3, axis, tap_arr,
+            len(taps), int(bool(symmetric)), float(scale),
+            torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(rc, "stencil_axis")
     counts.bump(name)
     return out
@@ -130,9 +131,10 @@ def stencil_valid(f: torch.Tensor, axis: int, taps: Sequence[float],
     out = torch.empty(out_shape, dtype=f.dtype, device=f.device)
     lib = _build.library("pencil", _SIGNATURES)
     tap_arr = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    rc = lib.stencil_valid_f32(
-        f.data_ptr(), out.data_ptr(), batch, n1, n2, n3, axis, tap_arr,
-        len(taps), float(scale), torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):
+        rc = lib.stencil_valid_f32(
+            f.data_ptr(), out.data_ptr(), batch, n1, n2, n3, axis, tap_arr,
+            len(taps), float(scale), torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(rc, "stencil_valid")
     counts.bump("stencil_valid:fd8")
     return out

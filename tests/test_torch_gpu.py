@@ -132,8 +132,9 @@ def test_k1_streaming_shapes_match_plain(cuda, shape, axis, mode):
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_k5_matches_plain(cuda, axis):
     """Valid-mode stencil on a stack whose ``axis`` carries 2 x 4 halo rows,
-    and on a slab thinner than the radius."""
-    for n_loc in (2, 16):
+    on a slab thinner than the radius, and at 72 and 130 rows (a part chunk
+    on axes 0 and 1; 130 and 2 take the scalar rows path on axis 2)."""
+    for n_loc in (2, 16, 72, 130):
         shape = list(SHAPE)
         shape[axis] = n_loc + 8
         f = _randn((3,) + tuple(shape), 9, cuda)
@@ -158,12 +159,35 @@ def test_k2_matches_plain(cuda, method, kind, weight_dtype):
 @pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("epilogue", sorted(K.EPILOGUES))
 @pytest.mark.parametrize("method", ["cubic_bspline", "linear"])
-def test_k3_matches_plain(cuda, epilogue, method, weight_dtype):
-    plan = _plan(cuda, method, weight_dtype=weight_dtype)
-    coefs = _randn((2,) + SHAPE, 3, cuda)
-    extra = _randn(SHAPE, 4, cuda)
+@pytest.mark.parametrize("kind", QUERY_SETS)
+def test_k3_matches_plain(cuda, kind, method, epilogue, weight_dtype):
+    """At every query set K2 is checked at, S = 4 and 2."""
+    shape, q = _query_set(kind, cuda, seed=1)
+    plan = I.build_plan(q, method, weight_dtype, shape=shape)
+    coefs = _randn((2,) + shape, 3, cuda)
+    extra = _randn(tuple(q.shape[1:]), 4, cuda)
     _assert_scaled(K.apply_plan_fused(coefs, plan, extra, epilogue, 0.25),
                    K.apply_plan_fused_plain(coefs, plan, extra, epilogue, 0.25))
+
+
+@pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("method", ["cubic_bspline", "linear"])
+def test_k2_k3_on_a_halo_extended_field(cuda, method, weight_dtype):
+    """The slab solve's plans: a field with 2 x 6 halo rows on x1 (clamped),
+    gathered at its 20 x 16 x 32 interior, so the output shape is not the
+    field shape."""
+    halo, interior = 6, (20,) + SHAPE[1:]
+    field = (interior[0] + 2 * halo,) + interior[1:]
+    _, q = _query_set("near", cuda, seed=5)
+    q = q[:, :interior[0]].clone()
+    q[0] += halo
+    plan = I.build_plan(q, method, weight_dtype, shape=field, wrap=(False, True, True))
+    coefs = _randn((2,) + field, 6, cuda)
+    extra = _randn(interior, 7, cuda)
+    _assert_scaled(K.apply_plan(coefs, plan), K.apply_plan_plain(coefs, plan))
+    for epilogue in sorted(K.EPILOGUES):
+        _assert_scaled(K.apply_plan_fused(coefs, plan, extra, epilogue, 0.25),
+                       K.apply_plan_fused_plain(coefs, plan, extra, epilogue, 0.25))
 
 
 @pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
@@ -203,6 +227,39 @@ def test_k4_on_two_cards(cuda):
         for dev in ("cuda:0", "cuda:1", "cuda:0"):
             got = K.interp3d(coef.to(dev), q.to(dev), basis)
             _assert_scaled(got.cpu(), ref)
+
+
+def test_k1_k5_k6_on_two_cards(cuda):
+    """K1 (FD8 and the prefilter), K5 and K6 (bf16, hd 64) on a second card
+    after the first, and back: each wrapper launches in its input's card's
+    context, with that card's stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    cpu = torch.device("cpu")
+    f = _randn((2,) + SHAPE, 12, cpu)
+    f_ext = _randn((3, 2 + 8) + SHAPE[1:], 13, cpu)
+    qkv = tuple(_randn((3, 200, 64), 50 + i, cpu).bfloat16() for i in range(3))
+    scale = 1.0 / (2 * math.pi / SHAPE[0])
+    refs = {
+        "fd8": P.stencil_axis_plain(f, 0, FD8.FD8_COEFFS, False, scale),
+        "prefilter": P.stencil_axis_plain(f, 1, PF.PREFILTER_TAPS, True, 1.0),
+        "k5": P.stencil_valid_plain(f_ext, 0, FD8.FD8_COEFFS, scale),
+        "k6": FA.flash_attention_plain(*qkv, True),
+    }
+    for dev in ("cuda:0", "cuda:1", "cuda:0"):
+        got = {
+            "fd8": P.stencil_axis(f.to(dev), 0, FD8.FD8_COEFFS, False, scale),
+            "prefilter": P.stencil_axis(f.to(dev), 1, PF.PREFILTER_TAPS, True, 1.0),
+            "k5": P.stencil_valid(f_ext.to(dev), 0, FD8.FD8_COEFFS, scale),
+            "k6": FA.flash_attention(*(t.to(dev) for t in qkv), True),
+        }
+        torch.cuda.synchronize(dev)
+        for key in ("fd8", "prefilter", "k5"):
+            assert got[key].device == torch.device(dev)
+            torch.testing.assert_close(got[key].cpu(), refs[key], rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(got["k6"].cpu().float(), refs["k6"].float(),
+                                   **K6_TOL[torch.bfloat16])
+        assert float((got["k6"].cpu() != refs["k6"]).float().mean()) <= K6_BF16_DIFFER
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(cuda):

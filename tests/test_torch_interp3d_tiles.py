@@ -1,6 +1,7 @@
-"""CPU emulation of the block mapping of kernels K2 (``apply_plan``) and K4
-(``interp3d``) in ``src/repro_torch/csrc/interp3d.cu``, and of K4's
-shared-memory source box (cubic bases).
+"""CPU emulation of the block mapping of kernels K2 (``apply_plan``), K3
+(``apply_plan_fused``) and K4 (``interp3d``) in
+``src/repro_torch/csrc/interp3d.cu``, of K4's shared-memory source box
+(cubic bases) and of K3's field-interleaved gather.
 
 The kernels cannot run here, so this file replays their index arithmetic in
 PyTorch: the output tiles of ``kernels.interp3d.out_tiling`` (one block of
@@ -9,11 +10,16 @@ decision against ``BOX_FLOATS`` (or a smaller budget), the floor-mod load of
 the box into a buffer, pass by pass when not all K fields fit at once, the
 box-local indices and the gather in the unchanged tap order a -> b -> c.
 Blocks over budget, and K2 and linear K4 everywhere, take the global gather
-at wrapped indices. The result must
+at wrapped indices. K3 is replayed thread by thread: the launch grid and
+block of ``tiled_launch``, each thread's output voxel (``OutVoxel``), and
+one pass over the taps a -> b -> c that forms each tap weight once and
+gathers both fields with it, then the epilogue. The result must
 equal the plain version bit for bit: the same values summed in the same order
 with the same float operations. Fields of 8^3, 5^3 (the box is wider than
 the grid) and 16 x 24 x 40, queries near the identity, across the periodic
-seam (-9.5 and +(n - 0.5)), uniform over the grid, and a flattened output.
+seam (-9.5 and +(n - 0.5)), uniform over the grid, and a flattened output;
+for K3 also a halo-extended field gathered at its interior (the slab
+solve's plans).
 """
 
 import math
@@ -164,6 +170,49 @@ def emulate_apply_plan(coef, plan):
     return out.reshape(lead + out_shape)
 
 
+def k3_thread_voxels(out_shape):
+    """The flat output voxel of every thread of K3's launch that has one, in
+    launch order: ``tiled_launch``'s grid and block over ``out_tiling``'s
+    tile (one output a thread) and ``OutVoxel``'s coordinates."""
+    (m1, m2, m3), (t1, t2, t3) = K.out_tiling(out_shape)
+    bz = 256 // (t2 * t3)
+    assert 256 % (t2 * t3) == 0 and t1 == bz  # one output a thread
+    grid = (-(-m3 // t3), -(-m2 // t2), -(-m1 // t1))
+    gz, gy, gx, tz, ty, tx = torch.meshgrid(
+        torch.arange(grid[2]), torch.arange(grid[1]), torch.arange(grid[0]),
+        torch.arange(bz), torch.arange(t2), torch.arange(t3), indexing="ij")
+    x1, x2, x3 = gz * bz + tz, gy * t2 + ty, gx * t3 + tx
+    valid = (x1 < m1) & (x2 < m2) & (x3 < m3)
+    return ((x1 * m2 + x2) * m3 + x3)[valid]
+
+
+def emulate_apply_plan_fused(coefs, plan, extra, epilogue, dt):
+    """K3 as the kernel computes it: each thread's voxel, its plan, and one
+    pass over the taps a -> b -> c with the tap weight (wab * w3[c]) formed
+    once and both fields gathered at the tap's index, then the epilogue."""
+    support = plan.support
+    out_shape = tuple(plan.out_shape)
+    p = k3_thread_voxels(out_shape)
+    assert torch.equal(torch.sort(p).values, torch.arange(math.prod(out_shape)))
+    i1, i2, i3 = (i.reshape(support, -1)[:, p].long() for i in plan.idx)
+    w1, w2, w3 = (w.reshape(support, -1)[:, p] for w in plan.weights)
+    f0, f1 = coefs.reshape(2, -1)
+    a0 = torch.zeros(p.shape, dtype=torch.float32)
+    a1 = torch.zeros(p.shape, dtype=torch.float32)
+    for a in range(support):
+        for b in range(support):
+            iab = i1[a] + i2[b]
+            wab = w1[a] * w2[b]
+            for c in range(support):
+                i = iab + i3[c]
+                wabc = wab.float() * w3[c].float()
+                a0 = a0 + wabc * f0[i]
+                a1 = a1 + wabc * f1[i]
+    out = torch.full((math.prod(out_shape),), float("nan"))
+    out[p] = K.EPILOGUES[epilogue][1](a0, a1, extra.reshape(-1)[p], dt)
+    return out.reshape(out_shape)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_intra_op_thread():
     """The emulation runs thousands of small tensor ops. Beside other test
@@ -205,6 +254,42 @@ def test_k2_tile_emulation_is_bit_equal_to_plain(shape, kind, basis, dtype):
     got = emulate_apply_plan(coef, plan)
     ref = K.apply_plan_plain(coef, plan)
     assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("basis", I.METHODS)
+@pytest.mark.parametrize("shape,kind", CASES, ids=lambda x: str(x))
+def test_k3_tile_emulation_is_bit_equal_to_plain(shape, kind, basis, dtype):
+    """Both epilogues, fp32 and bf16 weights, S = 4 and 2."""
+    q = _queries(shape, kind)
+    plan = I.build_plan(q, basis, DTYPES[dtype], shape=shape)
+    coefs = _coef(shape, 2)
+    extra = _coef(tuple(q.shape[1:]), 1, seed=2)[0]
+    for epilogue in sorted(K.EPILOGUES):
+        got = emulate_apply_plan_fused(coefs, plan, extra, epilogue, 0.25)
+        ref = K.apply_plan_fused_plain(coefs, plan, extra, epilogue, 0.25)
+        assert torch.equal(got, ref), (epilogue, float((got - ref).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("basis", I.METHODS)
+def test_k3_tile_emulation_on_a_halo_extended_field(basis, dtype):
+    """The slab solve's plan: the field has 2 x 3 halo rows on x1 (clamped,
+    not wrapped), the output is the 10 x 24 x 40 interior, so the output
+    shape differs from the field shape (and is not a multiple of the tile
+    along x1 or x2)."""
+    halo, interior = 3, (10, 24, 40)
+    field = (interior[0] + 2 * halo,) + interior[1:]
+    q = _queries(interior, "near")
+    q[0] += halo
+    plan = I.build_plan(q, basis, DTYPES[dtype], shape=field, wrap=(False, True, True))
+    assert tuple(plan.out_shape) == interior and tuple(plan.field_shape) == field
+    coefs = _coef(field, 2)
+    extra = _coef(interior, 1, seed=2)[0]
+    for epilogue in sorted(K.EPILOGUES):
+        got = emulate_apply_plan_fused(coefs, plan, extra, epilogue, 0.25)
+        ref = K.apply_plan_fused_plain(coefs, plan, extra, epilogue, 0.25)
+        assert torch.equal(got, ref), (epilogue, float((got - ref).abs().max()))
 
 
 def test_box_share_follows_the_queries():
