@@ -39,16 +39,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (a), P rounded to bf16 before P.V and the last key tile
               dropped, must fail
               K6's bf16 check, so that the check can see such faults.
-4. reference: 16^3 registrations on the card (fused plan path; plan-free)
-              against the same registrations through the plain versions on
-              the CPU: equal Newton and PCG counts; then (reference_lm) the
+4. reference: 16^3 registrations on the card (fused plan path; plan-free;
+              NCC and NGF, the latter capped at REF_NGF_MAX_NEWTON steps, on
+              the contrast-inverted pair; a B = 2 register_batch with the
+              donating step) against the same registrations through the
+              plain versions on the CPU: equal Newton and PCG counts (per
+              pair); then (reference_lm) the
               smoke configs of qwen1.5-0.5b and smollm-135m with K6's head
               size 64, fp32 and bf16, the same seeded weights on the card and
               on the CPU: prefill and decode logits within the CPU tests'
               tolerances, equal greedy ids in fp32.
 5. matvec   : the plan-path and the fused (K3) Gauss-Newton matvec on one
               size^3 GradientState, <= 1e-5 * max(scale, 1).
-6-11. paths : ``register`` / ``register_multires`` / ``warp_labels`` of the
+6-17. paths : ``register`` / ``register_multires`` / ``warp_labels`` of the
               size^3 synthetic pair through each path of the port, every
               launch count set to 0 just before a path and read just after;
               each kernel of the path must have launched and no plain
@@ -68,18 +71,38 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              fd8-cubic, fp32, fused matvec, halo 6 (K5, K1,
                              K2, K3 on halo-extended slabs); the solve's
                              Newton and PCG counts, v within 1e-4 * max|v|
+              solve_ncc      ``repro_torch.api.Solver`` (mode single, NCC,
+                             fused) on the contrast-inverted pair
+                             (``make_multimodal_pair``) with its labels: K1,
+                             K2, K3 and K4 linear (the facade's Dice); det F
+                             min > 0
+              solve_ngf      ``register(measure="ngf")``, fused, on the same
+                             pair, capped at NGF_MAX_NEWTON steps: K1, K2,
+                             K3, FD8 >= 6 launches a matvec (det F reported)
+              batch          ``register_batch`` of ``make_batch`` (B = 2,
+                             pair 0 = the solve path's pair), fused, donating
+                             step: pair 0 takes the solve path's Newton and
+                             PCG counts, v within 1e-6 * max|v|
+              ensemble_slab  the same batch through ``register_sharded`` on
+                             a 1 x 1 ensemble x slab layout of the one-rank
+                             NCCL group (K5, K1, K2, K3): the batch's counts,
+                             v within 1e-4 * max|v|
+              cli            ``repro_torch.launch.register.main(["--config",
+                             "claire_256", "--device", "cuda"])`` in process
+              baseline_gd    ``core.baseline_gd.solve``, fd8-cubic, five
+                             iterations, its gradient norms beside GN's
               serve_lm:qwen1.5-0.5b  ``repro_torch.launch.serve_lm.serve`` at
                              full width (24 layers, MHA, random seeded
                              weights, bf16): 8 requests x 2048-token prompt
                              + 64 generated; K6 once per layer
               serve_lm:smollm-135m   30 layers, GQA (K/V repeated), 8 x 2000
                              (a ragged tail) + 48
-12. times   : each kernel at its main-path shape (CUDA events after warm-up)
+18. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one (K6: SDPA); K4
               also at uniform queries, and ptxas' registers and spills of
               each K2 / K4 variant.
-13. profile : the fp32, the plan-free and the slab solve once more under
+19. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
               and the device's idle share of the unprofiled wall time; then
               the qwen1.5-0.5b prefill (K6, matmuls, elementwise) and its
@@ -96,6 +119,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import pathlib
@@ -118,6 +142,7 @@ PLAN_REL = 1e-5            # K2/K3/K4: max|kernel - plain| <= 1e-5 * max(|plain|
 MATVEC_REL = 1e-5          # fused vs plan matvec, as tests/test_fused_matvec.py
 REF_V_REL = 1e-4           # 16^3 solve, card vs CPU: max|dv| <= 1e-4 * max|v|
 SLAB_V_REL = 1e-4          # slab vs single-device solve: max|dv| <= 1e-4 * max|v|
+BATCH_V_REL = 1e-6         # batch pair 0 vs the solve path: max|dv| <= 1e-6 * max|v|
 K5_REL = 1e-5              # K5: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
 #: K6 vs plain, (rtol, atol) per dtype. fp32: tests/test_flashattn.py's.
 #: bf16: kernel and plain version both accumulate in fp32 and round once, so
@@ -165,10 +190,25 @@ PATHS = {
     "solve_mixed": (dict(variant="fd8-cubic", mixed_precision=True, use_fused_matvec=True),
                     _K1_KEYS + ["apply_plan:bf16"] + [k + ":bf16" for k in _FUSED]),
 }
-#: the plan-free variants that reach the other K4 variants (two Newton steps).
 #: the slab path (one-rank NCCL group) and the kernels it must launch.
 SLAB_KW = dict(variant="fd8-cubic", use_fused_matvec=True, halo=6)
 SLAB_REQUIRED = ["stencil_valid:fd8"] + _K1_KEYS + ["apply_plan"] + _FUSED
+#: the paths of the facade, the measures, the batch and the ensemble x slab
+#: layout: kernels that must launch (NCC adds K4 linear for the facade's Dice)
+PLAN_FUSED = _K1_KEYS + ["apply_plan"] + _FUSED
+NCC_REQUIRED = PLAN_FUSED + ["interp3d:linear"]
+#: NGF's Newton caps. At 256^3 its fourth step already meets non-positive
+#: curvature, PCG runs to its 500-iteration cap (~12 s a step on the H100)
+#: and the gradient norm stalls (PERF.md §6); at 16^3 that happens from
+#: the sixth step on.
+NGF_MAX_NEWTON = 3
+REF_NGF_MAX_NEWTON = 4
+#: NGF, card vs CPU at 16^3: equal counts and v within 1e-2 * max|v|. NGF's
+#: GN density divides by (|grad m|^2 + eps^2)^2, which amplifies fp32
+#: ordering noise: the JAX package and the port, both on the CPU, differ by
+#: 2.8e-3 * max|v| after four steps at equal counts.
+REF_NGF_V_REL = 1e-2
+#: the plan-free variants that reach the other K4 variants (two Newton steps).
 VARIANT_PATHS = {
     "planfree:fd8-cubic": (dict(variant="fd8-cubic", use_plan=False),
                            ["interp3d:cubic_bspline"]),
@@ -510,9 +550,11 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
 
+    from repro_torch import api as API
     from repro_torch import device as D
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import ARCHS, REGISTRATIONS
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import baseline_gd as BGD
     from repro_torch.core import gradient as GR
     from repro_torch.core import hessian as HS
     from repro_torch.core import interp as I
@@ -520,12 +562,14 @@ def main(argv=None) -> int:
     from repro_torch.core import registration as R
     from repro_torch.core import semilag as SL
     from repro_torch.data import synthetic as S
+    from repro_torch.distributed import group as G
     from repro_torch.kernels import _build, counts
     from repro_torch.kernels import fd8 as FD8
     from repro_torch.kernels import flashattn as FA
     from repro_torch.kernels import interp3d as K
     from repro_torch.kernels import pencil as P
     from repro_torch.kernels import prefilter as PF
+    from repro_torch.launch import register as CLI
     from repro_torch.launch import serve_lm
     from repro_torch.models import build_model
 
@@ -746,21 +790,44 @@ def main(argv=None) -> int:
         return 1
 
     # 4. reference: 16^3 solves on the card vs the plain versions on the CPU
+    def ref_entry(card_kw, got, ref, v_rel=REF_V_REL):
+        dv = max_err(got.v.cpu(), ref.v)
+        vmax = float(ref.v.abs().max())
+        pcg_ref = [h["pcg_iters"] for h in ref.history]
+        pcg_got = [h["pcg_iters"] for h in got.history]
+        return dict(
+            card=card_kw, ok=(got.iters == ref.iters and pcg_got == pcg_ref
+                              and got.converged == ref.converged and dv <= v_rel * vmax),
+            iters=[got.iters, ref.iters], pcg=[pcg_got, pcg_ref], max_abs_dv=dv,
+            tol=v_rel * vmax, mismatch_rel=[got.mismatch_rel, ref.mismatch_rel])
+
     small = S.make_pair(args.seed, (16, 16, 16), device="cpu")
     refs = []
     for kw in (dict(use_fused_matvec=True), dict(use_plan=False)):
         ref = R.register(small.m0, small.m1, device="cpu",
                          use_plan=kw.get("use_plan", True))
-        got = R.register(small.m0, small.m1, device=dev, **kw)
-        dv = max_err(got.v.cpu(), ref.v)
-        vmax = float(ref.v.abs().max())
-        pcg_ref = [h["pcg_iters"] for h in ref.history]
-        pcg_got = [h["pcg_iters"] for h in got.history]
-        refs.append(dict(
-            card=kw, ok=(got.iters == ref.iters and pcg_got == pcg_ref
-                         and got.converged == ref.converged and dv <= REF_V_REL * vmax),
-            iters=[got.iters, ref.iters], pcg=[pcg_got, pcg_ref], max_abs_dv=dv,
-            tol=REF_V_REL * vmax, mismatch_rel=[got.mismatch_rel, ref.mismatch_rel]))
+        refs.append(ref_entry(kw, R.register(small.m0, small.m1, device=dev, **kw), ref))
+    # NCC and NGF on the inverted multimodal pair (NGF capped), fused matvec
+    mm16 = S.make_multimodal_pair(args.seed, (16, 16, 16), mode="inverted", device="cpu")
+    for kw in (dict(measure="ncc", use_fused_matvec=True),
+               dict(measure="ngf", use_fused_matvec=True, max_newton=REF_NGF_MAX_NEWTON)):
+        ref = R.register(mm16.m0, mm16.m1, device="cpu", **kw)
+        refs.append(ref_entry(kw, R.register(mm16.m0, mm16.m1, device=dev, **kw), ref,
+                              REF_NGF_V_REL if kw["measure"] == "ngf" else REF_V_REL))
+    # a B = 2 batch: the card's donating step against the CPU's host test
+    b16 = S.make_batch(args.seed, (16, 16, 16), 2, device="cpu")
+    ref = R.register_batch(b16.m0, b16.m1, use_fused_matvec=True, device="cpu")
+    got = R.register_batch(b16.m0, b16.m1, use_fused_matvec=True, donate=True, device=dev)
+    pcg_pairs = [[[int(h["pcg_iters"][b]) for h in r.history if h["active"][b]]
+                  for b in range(2)] for r in (got, ref)]
+    dv = max_err(got.v.cpu(), ref.v)
+    vmax = float(ref.v.abs().max())
+    refs.append(dict(
+        card=dict(batch=2, use_fused_matvec=True, donate=True),
+        ok=(got.iters == ref.iters and pcg_pairs[0] == pcg_pairs[1]
+            and got.converged == ref.converged and dv <= REF_V_REL * vmax),
+        iters=[got.iters, ref.iters], pcg=pcg_pairs, max_abs_dv=dv, tol=REF_V_REL * vmax,
+        mismatch_rel=[got.mismatch_rel, ref.mismatch_rel]))
     ok4 = all(r["ok"] for r in refs)
     emit("reference", ok=ok4, runs=refs)
     if not ok4:
@@ -825,7 +892,7 @@ def main(argv=None) -> int:
         return 1
     del gs, hv_plan, hv_fused, v, vt
 
-    # 6-11. the paths, each with every count set to 0 just before it
+    # 6-17. the paths, each with every count set to 0 just before it
     path_launches = {}
 
     def drive(label, required, run):
@@ -872,7 +939,8 @@ def main(argv=None) -> int:
             return 1
         if label == "solve":
             solve_ref = dict(v=res.v, iters=res.iters,
-                             pcg=[h["pcg_iters"] for h in res.history])
+                             pcg=[h["pcg_iters"] for h in res.history],
+                             gnorm=[h["gnorm"] for h in res.history])
         if label == "solve_planfree":
             cfg_pf = R.make_transport_config(**kw)
             warped, lf = drive("warp_labels", ["interp3d:linear"],
@@ -935,6 +1003,119 @@ def main(argv=None) -> int:
         return 1
     del res
 
+    # NCC through the facade (single mode, its Dice through warp_labels) and
+    # NGF through register, on the contrast-inverted pair
+    mm = S.make_multimodal_pair(args.seed, shape, mode="inverted", device=dev)
+    problem = API.RegistrationProblem(m0=mm.m0, m1=mm.m1, labels0=mm.labels0,
+                                      labels1=mm.labels1)
+    opts = API.SolverOptions(measure="ncc", use_fused_matvec=True, mode="single")
+    res, fields = drive("solve_ncc", NCC_REQUIRED, lambda: API.Solver(opts).solve(problem))
+    ok = (solved(res) and not fields["missing"] and not fields["plain_runs"]
+          and res.dice_after is not None and math.isfinite(res.dice_after))
+    emit("solve_ncc", ok=ok, size=n, entry="repro_torch.api.Solver", options=opts.to_dict(),
+         iters=res.iters, matvecs=res.matvecs, converged=res.converged,
+         rel_grad=res.rel_grad, mismatch_rel=res.mismatch_rel, detF=res.detF,
+         dice_before=res.dice_before, dice_after=res.dice_after,
+         solver_wall_s=res.wall_time_s, register_wall_s=fields.pop("wall_s"), **fields)
+    if not ok:
+        return 1
+    del res
+    ngf_kw = dict(measure="ngf", use_fused_matvec=True, max_newton=NGF_MAX_NEWTON)
+    res, fields = drive("solve_ngf", PLAN_FUSED,
+                        lambda: R.register(mm.m0, mm.m1, device=dev, **ngf_kw))
+    fd8 = fields["launches"].get("stencil_axis:fd8", 0)
+    # det F is reported, not gated: three NGF steps fold this pair's map at
+    # 256^3 (PERF.md §6)
+    ok = (math.isfinite(res.mismatch_rel) and bool(torch.isfinite(res.v).all())
+          and tuple(res.v.shape) == (3,) + shape and all(
+              math.isfinite(h["j"]) for h in res.history)
+          and not fields["missing"] and not fields["plain_runs"] and fd8 >= 6 * res.matvecs)
+    emit("solve_ngf", ok=ok, size=n, **ngf_kw,
+         **solve_fields(res), fd8_launches=fd8, fd8_per_matvec_min=6,
+         register_wall_s=fields.pop("wall_s"), **fields)
+    if not ok:
+        return 1
+    del res, mm, problem
+
+    # a B = 2 batch (pair 0 is the solve path's pair), donating step
+    batch = S.make_batch(args.seed, shape, 2, device=dev)
+    bres, fields = drive("batch", PLAN_FUSED,
+                         lambda: R.register_batch(batch.m0, batch.m1, use_fused_matvec=True,
+                                                  donate=True, device=dev))
+
+    def pair_pcg(r):
+        return [[int(h["pcg_iters"][b]) for h in r.history if h["active"][b]]
+                for b in range(len(r.iters))]
+
+    def batch_solved(r):
+        return (all(d["min"] > 0 for d in r.detF)
+                and all(math.isfinite(m) for m in r.mismatch_rel)
+                and bool(torch.isfinite(r.v).all()) and tuple(r.v.shape) == (2, 3) + shape)
+
+    dv = max_err(bres.v[0], solve_ref["v"])
+    tol = BATCH_V_REL * float(solve_ref["v"].abs().max())
+    ok = (batch_solved(bres) and not fields["missing"] and not fields["plain_runs"]
+          and bres.iters[0] == solve_ref["iters"] and pair_pcg(bres)[0] == solve_ref["pcg"]
+          and dv <= tol)
+    emit("batch", ok=ok, size=n, batch=2, use_fused_matvec=True, donate=True,
+         iters=bres.iters, pcg_per_step=pair_pcg(bres), matvecs=bres.matvecs,
+         converged=bres.converged, mismatch_rel=bres.mismatch_rel, detF=bres.detF,
+         solver_wall_s=bres.wall_time_s, register_wall_s=fields.pop("wall_s"),
+         solve_iters=solve_ref["iters"], solve_pcg_per_step=solve_ref["pcg"],
+         max_abs_dv_pair0_vs_solve=dv, tol=tol, **fields)
+    if not ok:
+        return 1
+
+    # the same batch on a 1 x 1 ensemble x slab layout of the one-rank group
+    with slab_group(dev):
+        layout = G.ensemble_slab_groups(1, 1)
+        eres, fields = drive("ensemble_slab", SLAB_REQUIRED,
+                             lambda: R.register_sharded(batch.m0, batch.m1, group=layout,
+                                                        device=dev, **SLAB_KW))
+    dv = max_err(eres.v, bres.v)
+    tol = SLAB_V_REL * float(bres.v.abs().max())
+    ok = (batch_solved(eres) and not fields["missing"] and not fields["plain_runs"]
+          and eres.iters == bres.iters and eres.matvecs == bres.matvecs
+          and pair_pcg(eres) == pair_pcg(bres) and dv <= tol)
+    emit("ensemble_slab", ok=ok, size=n, layout=layout.sizes(), backend="nccl",
+         **SLAB_KW, iters=eres.iters, pcg_per_step=pair_pcg(eres),
+         matvecs=eres.matvecs, converged=eres.converged, mismatch_rel=eres.mismatch_rel,
+         detF=eres.detF, solver_wall_s=eres.wall_time_s,
+         register_wall_s=fields.pop("wall_s"), batch_iters=bres.iters,
+         max_abs_dv_vs_batch=dv, tol=tol, **fields)
+    if not ok:
+        return 1
+    del bres, eres, batch
+
+    # the registration CLI, in process
+    config = f"claire_{n}"
+    argv = (["--config", config] if config in REGISTRATIONS else ["--grid", str(n)]) + [
+        "--device", "cuda"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, fields = drive("cli", _K1_KEYS + ["apply_plan"], lambda: CLI.main(argv))
+    lines = out.getvalue().splitlines()
+    ok = (rc == 0 and not fields["missing"] and not fields["plain_runs"]
+          and any("converged=" in ln for ln in lines))
+    emit("cli", ok=ok, argv=argv, rc=rc, output=lines, wall_s=fields.pop("wall_s"),
+         **fields)
+    if not ok:
+        return 1
+
+    # the gradient-descent baseline (Table 8), five iterations
+    gd, fields = drive("baseline_gd", _K1_KEYS + ["apply_plan"],
+                       lambda: BGD.solve(pair.m0, pair.m1, R.make_transport_config("fd8-cubic"),
+                                         max_iters=5))
+    ok = (not fields["missing"] and not fields["plain_runs"] and len(gd.history) >= 1
+          and bool(torch.isfinite(gd.v).all()) and gd.gnorm < gd.gnorm0)
+    emit("baseline_gd", ok=ok, size=n, variant="fd8-cubic", max_iters=5, iters=gd.iters,
+         gnorm_history=[h["gnorm"] for h in gd.history],
+         gn_gnorm_history=solve_ref["gnorm"], rel_grad=gd.rel_grad,
+         solver_wall_s=gd.wall_time_s, wall_s=fields.pop("wall_s"), **fields)
+    if not ok:
+        return 1
+    del gd
+
     # the LM serving paths at full width, random seeded weights
     lm_walls = {}
     for label, (arch, b, p_len, g) in LM_PATHS.items():
@@ -972,7 +1153,7 @@ def main(argv=None) -> int:
     def path_count(key):
         return sum(snap.get(key, 0) for snap in path_launches.values())
 
-    # 12. times at the main-path shapes
+    # 18. times at the main-path shapes
     reps, plain_reps = TIMING_REPS, PLAIN_REPS
     rows = {}
     fd8_scale = 1.0 / (2 * math.pi / n)
@@ -1099,7 +1280,7 @@ def main(argv=None) -> int:
          ptxas_k2_k4=ptxas_kernels(_build.BUILD_LOG.get("interp3d", {}).get("ptxas", []),
                                    ("apply_plan_kernel", "interp3d_kernel")))
 
-    # 13. profile: device time by kernel group, and the idle share
+    # 19. profile: device time by kernel group, and the idle share
     for label in ("solve", "solve_planfree"):
         kw = PATHS[label][0]
         profile_solve(label, lambda kw=kw: R.register(pair.m0, pair.m1, device=dev, **kw),

@@ -1,6 +1,6 @@
-"""Public registration API: ``register``, ``register_multires`` and the
-slab-parallel ``register_sharded`` (port of ``repro.core.registration``,
-single pair).
+"""Public registration API: ``register``, ``register_multires``,
+``register_batch`` and the slab-parallel ``register_sharded`` (port of
+``repro.core.registration``).
 
 Variant tags follow the paper's Table 6:
     fft-cubic    : FFT first derivatives + cubic Lagrange interpolation
@@ -11,10 +11,12 @@ Variant tags follow the paper's Table 6:
 
 The JAX ``backend=`` argument becomes ``device=``: the entry points run on
 the card unless the caller passes ``device="cpu"``, and raise when the card
-is asked for and absent. ``mixed_precision`` (bf16 interpolation weights)
-and ``use_plan=False`` (plan-free interpolation, kernel K4) run. Not ported
-yet, and raising ``NotImplementedError``: NCC/NGF (ROADMAP A12) and batches
-(A14), also the ensemble x slab mode of ``register_sharded``.
+is asked for and absent. Every option of the JAX entry points runs:
+``mixed_precision`` (bf16 interpolation weights), ``use_plan=False``
+(plan-free interpolation, kernel K4), the measures ``"ssd" | "ncc" |
+"ngf"``, batches (``register_batch``) and the ensemble x slab mode of
+``register_sharded``, where a ``torch.distributed`` group layout takes the
+place of the JAX mesh.
 """
 
 from __future__ import annotations
@@ -22,12 +24,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import device as _device
 from ..distributed import claire_dist as _dist
+from ..distributed import group as _group
 from . import gauss_newton as _gn
 from . import measures as _meas
 from . import metrics as _metrics
@@ -53,6 +55,13 @@ def _score_single(m0, m1, v, cfg):
     return m_warped, mis, detf
 
 
+def _score_batch(m0, m1, v, cfg):
+    """Post-solve metrics of every pair of a batch."""
+    scores = [_score_single(m0[b], m1[b], v[b], cfg) for b in range(m0.shape[0])]
+    return (torch.stack([s[0] for s in scores]), [s[1] for s in scores],
+            [s[2] for s in scores])
+
+
 @dataclasses.dataclass
 class RegistrationResult:
     v: torch.Tensor                # stationary velocity field (3, N1, N2, N3)
@@ -73,7 +82,7 @@ def make_transport_config(variant: str = "fd8-cubic", nt: int = 4,
                           use_fused_matvec: bool = False) -> _tr.TransportConfig:
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; choose from {sorted(VARIANTS)}")
-    _meas.resolve(measure)  # fail fast on unknown or unported measures
+    _meas.resolve(measure)  # fail fast on unknown measures
     if use_fused_matvec and not use_plan:
         raise ValueError("use_fused_matvec requires use_plan=True (the fused "
                          "kernel consumes prebuilt interpolation plans)")
@@ -226,6 +235,72 @@ def register_multires(
     )
 
 
+@dataclasses.dataclass
+class BatchRegistrationResult:
+    v: torch.Tensor                # (B, 3, N1, N2, N3)
+    m_warped: torch.Tensor         # (B, N1, N2, N3)
+    mismatch_rel: List[float]      # per pair
+    detF: List[Dict[str, float]]   # per pair
+    iters: List[int]
+    matvecs: List[int]
+    rel_grad: List[float]
+    converged: List[bool]
+    wall_time_s: float
+    history: list
+
+
+def _batch_result(m0, m1, res, cfg) -> BatchRegistrationResult:
+    m_warped, mis, detf = _score_batch(m0, m1, res.v, cfg)
+    return BatchRegistrationResult(
+        v=res.v, m_warped=m_warped, mismatch_rel=mis, detF=detf,
+        iters=[int(i) for i in res.iters], matvecs=[int(m) for m in res.matvecs],
+        rel_grad=[float(r) for r in res.rel_grad],
+        converged=[bool(c) for c in res.converged], wall_time_s=res.wall_time_s,
+        history=res.history)
+
+
+def register_batch(
+    m0,
+    m1,
+    variant: str = "fd8-cubic",
+    beta: float = 5e-4,
+    gamma: float = 1e-4,
+    nt: int = 4,
+    tol_rel_grad: float = 5e-2,
+    max_newton: int = 50,
+    mixed_precision: bool = False,
+    use_plan: bool = True,
+    measure: object = "ssd",
+    use_fused_matvec: bool = False,
+    v0=None,
+    gnorm_ref=None,
+    verbose: bool = False,
+    donate: bool = False,
+    device="cuda",
+) -> BatchRegistrationResult:
+    """Register a batch of pairs ``m0[b] -> m1[b]``, ``(B, N1, N2, N3)``.
+
+    Per-pair convergence is masked (``gauss_newton.solve_batch``), so each
+    pair's result is that of its own :func:`register` call. ``gnorm_ref`` is
+    a scalar or per pair; ``donate=True`` runs the donating step (stopping
+    test on the device in fp32, velocity updated in place, a ``v0`` on
+    ``device`` consumed). Inputs are moved to ``device`` as float32.
+    """
+    dev = _device.resolve(device)
+    cfg = make_transport_config(variant, nt=nt, mixed_precision=mixed_precision,
+                                use_plan=use_plan, measure=measure,
+                                use_fused_matvec=use_fused_matvec)
+    m0 = _device.as_tensor(m0, dev)
+    m1 = _device.as_tensor(m1, dev)
+    if v0 is not None:
+        v0 = _device.as_tensor(v0, dev)
+    gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
+                          max_newton=max_newton)
+    res = _gn.solve_batch(m0, m1, cfg, gn_cfg, v0=v0, gnorm_ref=gnorm_ref,
+                          verbose=verbose, donate=donate)
+    return _batch_result(m0, m1, res, cfg)
+
+
 def _check_slab_group(group, dev: torch.device) -> None:
     """Raise without an initialised group, or when its backend does not suit
     the device (NCCL for ``cuda``, gloo for ``cpu``)."""
@@ -266,12 +341,14 @@ def register_sharded(
     use_fused_matvec: bool = False,
     halo_compression: str = "none",
     v0=None,
-    gnorm_ref: Optional[float] = None,
+    gnorm_ref=None,
     verbose: bool = False,
     device="cuda",
 ):
     """Register with the grid cut into x1 slabs over the ranks of ``group``
-    (a ``torch.distributed`` group; None: the default one).
+    (a ``torch.distributed`` group; None: the default one), or, for a batch,
+    over an ensemble x slab layout (``group`` a
+    ``repro_torch.distributed.group.EnsembleSlabGroups``).
 
     Called on every rank with the *global* images; each rank solves on its
     slab (``repro_torch.distributed.claire_dist.solve_slab``): FD8 and SL
@@ -286,14 +363,18 @@ def register_sharded(
     step's footpoint displacement along x1 stays within ``halo - 2``;
     footpoints past it are clamped to the exchanged slab. ``halo_compression
     ="int8"`` sends the halos as absmax int8. The group's backend must suit
-    ``device``: NCCL on ``cuda``, gloo on ``cpu``. Batched (4D) images, the
-    ensemble x slab mode, need the batched driver (ROADMAP A14).
+    ``device``: NCCL on ``cuda``, gloo on ``cpu``.
+
+    Batched (4D) images take the ensemble x slab mode
+    (``claire_dist.solve_ensemble_slab``): the pairs are split over the
+    ensemble groups, each pair's grid over a slab group, and every rank
+    returns what :func:`register_batch` returns for all pairs. A plain group
+    has no ensemble group and raises.
     """
-    if np.ndim(m0) == 4:
-        raise NotImplementedError(
-            "batched (ensemble x slab) sharded registration needs the batched "
-            "Newton driver, which is not ported yet (ROADMAP A14)")
     dev = _device.resolve(device)
+    layout = group
+    if isinstance(group, _group.EnsembleSlabGroups):
+        group = group.slab
     _check_slab_group(group, dev)
     cfg_kw = dict(nt=nt, mixed_precision=mixed_precision, use_plan=use_plan,
                   measure=measure, use_fused_matvec=use_fused_matvec)
@@ -304,6 +385,14 @@ def register_sharded(
         v0 = _device.as_tensor(v0, dev)
     gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
                           max_newton=max_newton, continuation=continuation)
+
+    if m0.ndim == 4:
+        if multires or levels is not None:
+            raise ValueError("batched sharded registration has no multires mode")
+        res = _dist.solve_ensemble_slab(m0, m1, cfg, gn_cfg, groups=layout, halo=halo,
+                                        compress=halo_compression, v0=v0,
+                                        gnorm_ref=gnorm_ref, verbose=verbose)
+        return _batch_result(m0, m1, res, cfg)
 
     def solve_fn(m0_l, m1_l, cfg_l, gn_l, **kw):
         return _dist.solve_slab(m0_l, m1_l, cfg_l, gn_l, group=group, halo=halo,

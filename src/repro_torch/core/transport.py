@@ -33,8 +33,8 @@ class TransportConfig:
     use_plan         : build interpolation plans once per solve / Newton step
                        (K2/K3); ``False`` interpolates at the footpoints in
                        every step (K4) and recomputes trajectory gradients
-    measure          : distance-measure spec (only "ssd" is ported; NCC/NGF
-                       are ROADMAP A12)
+    measure          : distance-measure spec ("ssd" | "ncc" | "ngf" or a
+                       ``measures.DistanceMeasure``)
     use_fused_matvec : run the PCG Hessian matvec through the fused
                        gather+epilogue kernel K3 (requires ``use_plan``)
     shard            : ``repro_torch.distributed.halo.ShardInfo`` or None.

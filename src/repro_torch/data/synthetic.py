@@ -70,11 +70,8 @@ def random_velocity(gen: torch.Generator, shape, amplitude: float = 0.6,
     return (amplitude / torch.clamp(vmax, min=1e-6)) * v
 
 
-def make_pair(seed: int, shape: Tuple[int, int, int], amplitude: float = 0.6,
-              nt: int = 4, device="cuda") -> ImagePair:
-    """A registration problem (m0, m1 = m0 transported by v_true) + labels."""
-    dev = _device.resolve(device)
-    gen = torch.Generator().manual_seed(int(seed))
+def _make_pair(gen: torch.Generator, shape, amplitude: float, nt: int,
+               dev: torch.device) -> ImagePair:
     shape = tuple(int(n) for n in shape)
     m0 = brain_phantom(gen, shape, device=dev)
     v_true = random_velocity(gen, shape, amplitude=amplitude, device=dev)
@@ -82,3 +79,44 @@ def make_pair(seed: int, shape: Tuple[int, int, int], amplitude: float = 0.6,
     m1 = _tr.solve_state(m0, v_true, cfg)[-1]
     return ImagePair(m0=m0, m1=m1, labels0=(m0 > 0.35).to(torch.float32),
                      labels1=(m1 > 0.35).to(torch.float32), v_true=v_true)
+
+
+def make_pair(seed: int, shape: Tuple[int, int, int], amplitude: float = 0.6,
+              nt: int = 4, device="cuda") -> ImagePair:
+    """A registration problem (m0, m1 = m0 transported by v_true) + labels."""
+    dev = _device.resolve(device)
+    return _make_pair(torch.Generator().manual_seed(int(seed)), shape, amplitude, nt, dev)
+
+
+def multimodal_remap(m1: torch.Tensor, mode: str = "inverted") -> torch.Tensor:
+    """The reference's intensity mapping of :func:`make_multimodal_pair`:
+    ``"inverted"`` 1 - m1, ``"quadratic"`` (1 - m1)^2."""
+    if mode == "inverted":
+        return 1.0 - m1
+    if mode == "quadratic":
+        return (1.0 - m1) ** 2
+    raise ValueError(f"unknown multimodal mode {mode!r}; "
+                     "expected 'inverted' or 'quadratic'")
+
+
+def make_multimodal_pair(seed: int, shape: Tuple[int, int, int], amplitude: float = 0.6,
+                         nt: int = 4, mode: str = "inverted", device="cuda") -> ImagePair:
+    """A contrast-changed problem (the multi-modal scenario): the geometry of
+    :func:`make_pair` with the reference's intensities remapped
+    (:func:`multimodal_remap`). The labels stay geometric (thresholds of the
+    images before the remap), so Dice stays a quality metric; SSD cannot
+    register these pairs, NCC takes ``"inverted"``, NGF both."""
+    pair = make_pair(seed, shape, amplitude=amplitude, nt=nt, device=device)
+    return dataclasses.replace(pair, m1=multimodal_remap(pair.m1, mode))
+
+
+def make_batch(seed: int, shape: Tuple[int, int, int], batch: int, amplitude: float = 0.6,
+               nt: int = 4, device="cuda") -> ImagePair:
+    """Batch of independent pairs (the population-study workload), stacked
+    on a leading axis. The pairs are drawn one after another from one
+    ``torch.Generator(seed)``, so pair 0 is ``make_pair(seed)``."""
+    dev = _device.resolve(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    pairs = [_make_pair(gen, shape, amplitude, nt, dev) for _ in range(int(batch))]
+    return ImagePair(*(torch.stack([getattr(p, f.name) for p in pairs])
+                       for f in dataclasses.fields(ImagePair)))

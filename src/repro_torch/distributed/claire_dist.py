@@ -1,4 +1,4 @@
-"""Slab-parallel registration of one pair (port of the slab parts of
+"""Slab-parallel registration (port of the slab parts of
 ``repro.distributed.claire_dist``).
 
 One registration is spread over the ranks of a ``torch.distributed`` group:
@@ -10,18 +10,25 @@ exchange halos, spectral operators all-gather, inner products all-reduce.
 Every host-side decision reads all-reduced scalars, so every rank takes the
 same branch and issues the same collectives.
 
-The ensemble x slab mode (``solve_ensemble_slab``) needs the batched Newton
-driver, which is not ported yet (ROADMAP A14).
+``solve_slab`` solves one pair over a slab group. ``solve_ensemble_slab``
+solves a batch over an (ensemble, slab) layout of ranks
+(``group.ensemble_slab_groups``): the pairs are split over the ensemble
+index, each share is solved by ``gauss_newton.solve_batch`` over its slab
+group with the slab step (:func:`make_slab_step`), and the velocities and
+per-pair results are gathered over both groups at the end.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import gauss_newton as _gn
 from ..core import transport as _tr
+from . import group as _group
 from . import halo as _halo
 
 
@@ -50,6 +57,14 @@ def halo_sl_step(f: torch.Tensor, foot: torch.Tensor, group=None,
     return _halo.apply_plan(plan, f, method, shard)
 
 
+def make_slab_step(cfg: _tr.TransportConfig, gn: _gn.GNConfig, shard: _halo.ShardInfo):
+    """The unmodified Newton step on this rank's slab: the slab semantics
+    enter only through ``TransportConfig.shard``. Signature of
+    ``gauss_newton.make_step``, so it goes into ``solve(step_fn=)`` and,
+    through ``_make_batch_step(step_fn=)``, into ``solve_batch``."""
+    return _gn.make_step(dataclasses.replace(cfg, shard=shard), gn)
+
+
 def solve_slab(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
                gn: _gn.GNConfig = _gn.GNConfig(), *, group=None, halo: int = 6,
                compress: str = "none", v0: torch.Tensor | None = None,
@@ -69,6 +84,74 @@ def solve_slab(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
     def local(f):
         return None if f is None else _halo.slice_local(f, n_loc, shard)
 
-    res = _gn.solve(local(m0), local(m1), dataclasses.replace(cfg, shard=shard), gn,
-                    v0=local(v0), gnorm_ref=gnorm_ref, eta0=eta0, verbose=verbose)
+    res = _gn.solve(local(m0), local(m1), cfg, gn, v0=local(v0), gnorm_ref=gnorm_ref,
+                    eta0=eta0, verbose=verbose, step_fn=make_slab_step(cfg, gn, shard))
     return dataclasses.replace(res, v=_halo.gather_full(res.v, shard))
+
+
+def _pad_history(history, length: int):
+    """A share's history padded to ``length`` evaluations: a pair that has
+    stopped repeats its last entry, no longer active (what the batched step
+    reports for a frozen pair)."""
+    if not history:
+        return history
+    last = dict(history[-1], active=np.zeros_like(history[-1]["active"]))
+    return list(history) + [last] * (length - len(history))
+
+
+def solve_ensemble_slab(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
+                        gn: _gn.GNConfig = _gn.GNConfig(), *, groups=None, halo: int = 6,
+                        compress: str = "none", v0: torch.Tensor | None = None,
+                        gnorm_ref=None, verbose: bool = False) -> _gn.BatchGNResult:
+    """A batch of registrations on an (ensemble, slab) layout of ranks:
+    ``groups`` is a ``group.EnsembleSlabGroups``. Called on every rank with
+    the *global* batch ``(B, N1, N2, N3)``; ensemble index e solves pairs
+    ``e*B/E .. (e+1)*B/E - 1`` with ``solve_batch`` over its slab group, each
+    pair's grid in x1 slabs. Returns the result of all B pairs on every rank:
+    velocities gathered over the slab group, then over the ensemble group,
+    and the per-pair counts and histories gathered over the ensemble group
+    (a share that stopped early repeats its last entry, inactive).
+    """
+    if not isinstance(groups, _group.EnsembleSlabGroups):
+        raise ValueError(f"the layout {groups!r} has no ensemble group; pass "
+                         "repro_torch.distributed.group.ensemble_slab_groups(E, S)")
+    if m0.ndim != 4:
+        raise ValueError(f"expected batched images (B, N1, N2, N3), got {tuple(m0.shape)}")
+    shard = _halo.ShardInfo.of_group(groups.slab, halo=halo, compress=compress)
+    _validate_slab(tuple(m0.shape[1:]), shard.nshards, halo)
+    bsz, n_e = m0.shape[0], groups.ensemble_size
+    if bsz % n_e != 0:
+        raise ValueError(f"batch {bsz} not divisible by the ensemble group's {n_e} ranks")
+    e = dist.get_rank(groups.ensemble)
+    per = bsz // n_e
+    pairs = slice(e * per, (e + 1) * per)
+    n_loc = m0.shape[1] // shard.nshards
+
+    def local(f):
+        return None if f is None else _halo.slice_local(f[pairs], n_loc, shard)
+
+    ref = gnorm_ref
+    if ref is not None and np.ndim(ref) > 0:
+        ref = np.broadcast_to(np.asarray(ref, dtype=np.float64), (bsz,))[pairs]
+    bstep = _gn._make_batch_step(cfg, gn, step_fn=make_slab_step(cfg, gn, shard))
+    res = _gn.solve_batch(local(m0), local(m1), cfg, gn, v0=local(v0), gnorm_ref=ref,
+                          verbose=verbose, step_fn=bstep)
+    v_share = _halo.gather_full(res.v, shard)
+    v_parts = [torch.empty_like(v_share) for _ in range(n_e)]
+    dist.all_gather(v_parts, v_share.contiguous(), group=groups.ensemble)
+    host = dataclasses.replace(res, v=None)
+    shares = [None] * n_e
+    dist.all_gather_object(shares, host, group=groups.ensemble)
+    length = max(len(r.history) for r in shares)
+    histories = [_pad_history(r.history, length) for r in shares]
+    history = [{k: np.concatenate([h[i][k] for h in histories]) for k in histories[0][i]}
+               for i in range(length)]
+
+    def cat(field):
+        return np.concatenate([getattr(r, field) for r in shares])
+
+    return _gn.BatchGNResult(
+        v=torch.cat(v_parts), iters=cat("iters"), matvecs=cat("matvecs"),
+        gnorm0=cat("gnorm0"), gnorm=cat("gnorm"), rel_grad=cat("rel_grad"),
+        converged=cat("converged"), history=history,
+        wall_time_s=max(r.wall_time_s for r in shares))

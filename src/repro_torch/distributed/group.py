@@ -7,17 +7,20 @@ caller names the rendezvous (``tcp://localhost:<port>`` or
 ``file://<path>``), the world size and the rank. A ``cuda`` group without
 NCCL raises; there is no fallback to gloo.
 
-``run_ranks`` runs a function on P CPU ranks in fresh processes, for tests
-and rehearsals without a card.
+``ensemble_slab_groups`` splits the world into the two groups of the
+ensemble x slab mode, the counterpart of the JAX package's
+``make_mesh((E, S), ("ensemble", "slab"))``. ``run_ranks`` runs a function
+on P CPU ranks in fresh processes, for tests and rehearsals without a card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import tempfile
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -53,6 +56,40 @@ def init_slab_group(rank: int, world_size: int, init_method: str, device="cuda",
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
                             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     return dist.group.WORLD
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleSlabGroups:
+    """The two groups of one rank in a world of ``E * S`` ranks laid out as
+    an (ensemble, slab) grid: rank ``r = e * S + s``. ``slab`` holds the
+    ranks with this rank's ``e`` (they share one pair's grid, in x1 slabs),
+    ``ensemble`` the ranks with this rank's ``s`` (they hold the same slab of
+    different pairs)."""
+
+    ensemble: object
+    slab: object
+    ensemble_size: int
+    slab_size: int
+
+    def sizes(self) -> Dict[str, int]:
+        return {"ensemble": self.ensemble_size, "slab": self.slab_size}
+
+
+def ensemble_slab_groups(ensemble_size: int, slab_size: int) -> EnsembleSlabGroups:
+    """Split the initialised default group (``ensemble_size * slab_size``
+    ranks) into this rank's ensemble and slab groups. Every rank must call it,
+    in the same order as its other ``new_group`` calls: it creates every
+    slab group, then every ensemble group."""
+    e_n, s_n = int(ensemble_size), int(slab_size)
+    world = dist.get_world_size()
+    if e_n < 1 or s_n < 1 or e_n * s_n != world:
+        raise ValueError(f"an ensemble x slab layout of {e_n} x {s_n} needs {e_n * s_n} "
+                         f"ranks, the group has {world}")
+    e, s = divmod(dist.get_rank(), s_n)
+    slabs = [dist.new_group([ei * s_n + si for si in range(s_n)]) for ei in range(e_n)]
+    ensembles = [dist.new_group([ei * s_n + si for ei in range(e_n)]) for si in range(s_n)]
+    return EnsembleSlabGroups(ensemble=ensembles[s], slab=slabs[e], ensemble_size=e_n,
+                              slab_size=s_n)
 
 
 def _rank_main(rank: int, fn: Callable, nprocs: int, args: Sequence, init: str,

@@ -20,6 +20,7 @@ import torch
 from . import device as _device
 from .core import gradient as _grad
 from .core import interp as _interp
+from .core import measures as _meas
 
 _PLAN_FIELDS = ("plan_fwd", "plan_adj")
 
@@ -79,15 +80,33 @@ def _plan_from(obj, device):
                            device)
 
 
+#: measure cache type -> its fields, as both packages name them
+_CACHES = {_meas._NCCCache: ("g", "a", "b", "c"),
+           _meas._NGFCache: ("kappa", "q", "nq2")}
+
+
+def measure_cache_from_numpy(cache, device="cuda"):
+    """An NCC or NGF measure cache (``measures._NCCCache`` /
+    ``_NGFCache``) from a mapping of its fields or an object with them as
+    attributes (such as the JAX NamedTuples); None stays None (SSD)."""
+    if cache is None:
+        return None
+    get = cache.get if isinstance(cache, Mapping) else (
+        lambda k: getattr(cache, k, None))
+    for typ, fields in _CACHES.items():
+        vals = [get(k) for k in fields]
+        if all(v is not None for v in vals):
+            return typ(*(tensor_from_numpy(v, device) for v in vals))
+    raise ValueError("a measure cache has the fields of NCC (g, a, b, c) or of NGF "
+                     f"(kappa, q, nq2); got {cache!r:.80}")
+
+
 def gradient_state_from_numpy(state: Mapping, device="cuda") -> _grad.GradientState:
     """A :class:`~repro_torch.core.gradient.GradientState` from a mapping of
     its fields. Array fields are numpy arrays; each plan is a mapping with
     ``idx, weights, method, field_shape`` or an object with those attributes
-    (such as the JAX ``InterpPlan``). Only SSD states (``measure_cache``
-    None) are ported."""
-    if state.get("measure_cache") is not None:
-        raise NotImplementedError(
-            "measure caches (NCC/NGF) are not ported yet (ROADMAP A12)")
+    (such as the JAX ``InterpPlan``); the measure cache is None (SSD) or an
+    NCC / NGF cache as :func:`measure_cache_from_numpy` takes it."""
     kwargs = {}
     for f in ("g", "m_traj", "lam_traj", "foot_fwd", "foot_adj", "divv",
               "j_mismatch", "j_reg", "grad_m_traj"):
@@ -95,6 +114,7 @@ def gradient_state_from_numpy(state: Mapping, device="cuda") -> _grad.GradientSt
         kwargs[f] = None if val is None else tensor_from_numpy(val, device)
     for f in _PLAN_FIELDS:
         kwargs[f] = _plan_from(state.get(f), device)
+    kwargs["measure_cache"] = measure_cache_from_numpy(state.get("measure_cache"), device)
     return _grad.GradientState(**kwargs)
 
 

@@ -351,6 +351,50 @@ def test_register_sharded_on_a_one_rank_nccl_group_matches_register(cuda, tmp_pa
     assert not [k for k in launched if k.startswith("plain:")]
 
 
+def _counts(res):
+    return res.iters, [h["pcg_iters"] for h in res.history], res.converged
+
+
+@pytest.mark.parametrize("measure,max_newton,v_rel", [("ncc", 50, 1e-4), ("ngf", 4, 1e-2)])
+def test_measures_register_on_card_as_on_cpu(cuda, measure, max_newton, v_rel):
+    """NCC and NGF on the contrast-inverted 16^3 pair, fused matvec: equal
+    Newton and PCG counts, v within 1e-4 * max|v| (NCC). NGF is capped at
+    four steps (in its sixth and seventh PCG runs to its 500-iteration cap,
+    in the JAX package as in the port), and
+    its v is held within 1e-2 * max|v|: its GN density divides by
+    (|grad m|^2 + eps^2)^2, and the JAX package and the port, both on the
+    CPU, differ by 2.8e-3 * max|v| after four steps at equal counts."""
+    pair = S.make_multimodal_pair(0, (16, 16, 16), mode="inverted", device="cpu")
+    kw = dict(measure=measure, use_fused_matvec=True, max_newton=max_newton)
+    ref = R.register(pair.m0, pair.m1, device="cpu", **kw)
+    counts.reset()
+    got = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    torch.cuda.synchronize()
+    launched = counts.snapshot()
+    assert _counts(got) == _counts(ref)
+    assert float((got.v.cpu() - ref.v).abs().max()) <= v_rel * float(ref.v.abs().max())
+    assert launched.get("apply_plan_fused:inc_state", 0) > 0
+    assert not [k for k in launched if k.startswith("plain:")]
+    if measure == "ngf":
+        assert launched["stencil_axis:fd8"] >= 6 * got.matvecs
+
+
+def test_register_batch_on_card_matches_cpu(cuda):
+    """A B = 2 batch with the donating step on the card against the host
+    test on the CPU: per-pair counts equal, v within 1e-4 * max|v|; pair 0
+    equals the card's own ``register`` of that pair."""
+    batch = S.make_batch(0, (16, 16, 16), 2, device="cpu")
+    ref = R.register_batch(batch.m0, batch.m1, use_fused_matvec=True, device="cpu")
+    got = R.register_batch(batch.m0, batch.m1, use_fused_matvec=True, donate=True,
+                           device=cuda)
+    assert got.iters == ref.iters and got.matvecs == ref.matvecs
+    assert got.converged == ref.converged
+    assert float((got.v.cpu() - ref.v).abs().max()) <= 1e-4 * float(ref.v.abs().max())
+    single = R.register(batch.m0[0], batch.m1[0], use_fused_matvec=True, device=cuda)
+    assert single.iters == got.iters[0] and single.matvecs == got.matvecs[0]
+    assert float((got.v[0] - single.v).abs().max()) <= 1e-6 * float(single.v.abs().max())
+
+
 K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-4)}
 K6_BF16_DIFFER = 0.05
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch import interop
+from repro_torch import api, interop
 from repro_torch.configs import ARCHS
 from repro_torch.core import interp as I
 from repro_torch.core import measures as M
@@ -66,6 +66,15 @@ def test_import_scan_covers_the_lm_path():
                  "kernels/flashattn"):
         assert f"src/repro_torch/{name}.py" in scanned
     assert (ROOT / "src/repro_torch/csrc/flashattn.cu").exists()
+
+
+def test_import_scan_covers_the_facade_batch_and_measures():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("api/__init__", "api/options", "api/problem", "api/result", "api/solver",
+                 "launch/register", "core/baseline_gd", "core/measures",
+                 "core/gauss_newton", "core/registration", "distributed/claire_dist",
+                 "distributed/group", "data/synthetic", "interop"):
+        assert f"src/repro_torch/{name}.py" in scanned
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b",
@@ -128,6 +137,14 @@ def test_cuda_requested_without_card_raises(monkeypatch):
         S.make_pair(0, (8, 8, 8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.tensor_from_numpy(m)
+    m4 = np.zeros((2, 8, 8, 8), np.float32)
+    for call in (lambda: R.register_batch(m4, m4), lambda: R.register(m, m, measure="ncc"),
+                 lambda: S.make_batch(0, (8, 8, 8), 2),
+                 lambda: S.make_multimodal_pair(0, (8, 8, 8)),
+                 lambda: api.solve(api.RegistrationProblem(m0=m, m1=m)),
+                 lambda: api.RegistrationProblem.synthetic(grid=(8, 8, 8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_wrappers_refuse_other_devices():
@@ -143,18 +160,19 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_unported_paths_raise_not_implemented():
-    # bf16 weights (A11) and the plan-free path (B4) are ported: they build
-    # configs and run instead of raising.
+    # bf16 weights (A11), the plan-free path (B4), NCC/NGF (A12) and the
+    # ensemble x slab mode (A14) are ported: they build configs and resolve
+    # instead of raising.
     cfg = R.make_transport_config(mixed_precision=True, use_plan=False)
     assert cfg.weight_dtype == torch.bfloat16 and not cfg.use_plan
     assert R.make_transport_config().weight_dtype is None
     for name in ("ncc", "ngf"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            M.resolve(name)
-    # The slab solve (A18) runs; its ensemble x slab mode waits for the
-    # batched driver, and without an initialised group it raises.
+        assert M.resolve(name).name == name
+        assert R.make_transport_config(measure=name).measure == name
+    # The slab solve and its ensemble x slab mode run on an initialised
+    # group; without one they raise.
     m4 = np.zeros((2, 8, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(RuntimeError, match="initialised torch.distributed group"):
         R.register_sharded(m4, m4, device="cpu")
     with pytest.raises(RuntimeError, match="initialised torch.distributed group"):
         R.register_sharded(m4[0], m4[0], device="cpu")
@@ -218,8 +236,11 @@ def test_interop_plan_and_gradient_state_roundtrip():
     gs = interop.gradient_state_from_numpy(state, device="cpu")
     assert float(gs.j_mismatch) == 1.5 and gs.grad_m_traj is None
     assert torch.equal(gs.plan_fwd.idx[2], plan.idx[2])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="measure cache"):
         interop.gradient_state_from_numpy(dict(state, measure_cache=(1,)), "cpu")
+    ncc = dict(g=arr, a=np.float32(0.5), b=np.float32(2.0), c=np.float32(3.0))
+    gs = interop.gradient_state_from_numpy(dict(state, measure_cache=ncc), "cpu")
+    assert isinstance(gs.measure_cache, M._NCCCache) and float(gs.measure_cache.c) == 3.0
 
 
 def test_chip_smoke_without_card_or_repo_fails(tmp_path, monkeypatch):
