@@ -91,6 +91,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              "claire_256", "--device", "cuda"])`` in process
               baseline_gd    ``core.baseline_gd.solve``, fd8-cubic, five
                              iterations, its gradient norms beside GN's
+              serve          ``repro_torch.serve.Server`` (max_batch 2, fused
+                             matvec, a checkpointed cache in a temporary
+                             directory, the other fields at their defaults)
+                             on the batch's pairs in three rounds, each
+                             waited on: A and B cold (the batch's counts, v
+                             within 1e-6 * max|v|), A again (warm, strictly
+                             fewer Newton steps) and B drifted (m1 moved by
+                             0.9 v_true, warm), pair 0 alone with no subject
+                             (a padded wave, A's cold counts); then the
+                             summary, A's checkpoint step and a fresh cache's
+                             bit-equal reload of A's velocity
+              serve_slab     the cold round through the server's mesh mode
+                             on the 1 x 1 layout of a one-rank NCCL group
+                             (K5 too): the cold round's counts, v within
+                             1e-4 * max|v|
+              serve_cli      ``repro_torch.launch.serve_registration.main(
+                             ["--smoke", "--device", "cuda"])`` in process
+                             (12^3 and 16^3, 6 requests; the launcher keeps
+                             the plan-path matvec, so K1 and K2)
               serve_lm:qwen1.5-0.5b  ``repro_torch.launch.serve_lm.serve`` at
                              full width (24 layers, MHA, random seeded
                              weights, bf16): 8 requests x 2048-token prompt
@@ -104,7 +123,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               each K2 / K4 variant.
 19. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
-              and the device's idle share of the unprofiled wall time; then
+              and the device's idle share of the unprofiled wall time; the
+              server's cold round (idle share of its latency in phase
+              serve); then
               the qwen1.5-0.5b prefill (K6, matmuls, elementwise) and its
               decode loop (idle share).
 
@@ -126,6 +147,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -143,6 +165,8 @@ MATVEC_REL = 1e-5          # fused vs plan matvec, as tests/test_fused_matvec.py
 REF_V_REL = 1e-4           # 16^3 solve, card vs CPU: max|dv| <= 1e-4 * max|v|
 SLAB_V_REL = 1e-4          # slab vs single-device solve: max|dv| <= 1e-4 * max|v|
 BATCH_V_REL = 1e-6         # batch pair 0 vs the solve path: max|dv| <= 1e-6 * max|v|
+SERVE_V_REL = 1e-6         # the server's cold wave vs the batch: max|dv| <= 1e-6 * max|v|
+SERVE_GNORM_REL = 1e-5     # a warm revisit's gnorm0 vs the cold visit's, relative
 K5_REL = 1e-5              # K5: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
 #: K6 vs plain, (rtol, atol) per dtype. fp32: tests/test_flashattn.py's.
 #: bf16: kernel and plain version both accumulate in fp32 and round once, so
@@ -521,6 +545,7 @@ def k24_query_sets(foot, seed: int, dev):
     5^3 and a 16 x 24 x 40 field, and ``foot`` as a flattened (1D) output."""
     import torch
     from repro_torch.core import semilag as SL
+    from repro_torch.core import transport as TR
     from repro_torch.data import synthetic as S
 
     shape = tuple(foot.shape[1:])
@@ -544,6 +569,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -551,7 +577,9 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch import api as API
+    from repro_torch import checkpoint as CK
     from repro_torch import device as D
+    from repro_torch import serve as SV
     from repro_torch.configs import ARCHS, REGISTRATIONS
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import baseline_gd as BGD
@@ -561,6 +589,7 @@ def main(argv=None) -> int:
     from repro_torch.core import metrics as M
     from repro_torch.core import registration as R
     from repro_torch.core import semilag as SL
+    from repro_torch.core import transport as TR
     from repro_torch.data import synthetic as S
     from repro_torch.distributed import group as G
     from repro_torch.kernels import _build, counts
@@ -571,6 +600,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import prefilter as PF
     from repro_torch.launch import register as CLI
     from repro_torch.launch import serve_lm
+    from repro_torch.launch import serve_registration as SCLI
     from repro_torch.models import build_model
 
     dev = D.resolve("cuda")
@@ -1085,7 +1115,7 @@ def main(argv=None) -> int:
          max_abs_dv_vs_batch=dv, tol=tol, **fields)
     if not ok:
         return 1
-    del bres, eres, batch
+    del eres
 
     # the registration CLI, in process
     config = f"claire_{n}"
@@ -1115,6 +1145,116 @@ def main(argv=None) -> int:
     if not ok:
         return 1
     del gd
+
+    # the registration server on the batch's pairs, as numpy arrays (what a
+    # server receives): three rounds, each waited on
+    pairs = [(batch.m0[b].cpu().numpy(), batch.m1[b].cpu().numpy()) for b in range(2)]
+    drift_cfg = TR.TransportConfig(interp="cubic_bspline", deriv="fd8", nt=4)
+    m1_drift = TR.solve_state(batch.m0[1], 0.9 * batch.v_true[1], drift_cfg)[-1].cpu().numpy()
+    del batch
+    rounds = [[(pairs[0], "A"), (pairs[1], "B")],
+              [(pairs[0], "A"), ((pairs[1][0], m1_drift), "B")],
+              [(pairs[0], None)]]
+
+    def serve(config, rnds):
+        out = []
+        with SV.Server(config) as srv:
+            for rnd in rnds:
+                futs = [srv.submit(SV.Request(m0=m0, m1=m1, subject=subj))
+                        for (m0, m1), subj in rnd]
+                out.append([fut.result(timeout=600) for fut in futs])
+        return out, srv.summary(), list(srv.stats.waves)
+
+    def request_fields(r):
+        return dict(subject=r.subject, iters=r.iters, matvecs=r.matvecs,
+                    converged=r.converged, warm_started=r.warm_started,
+                    cache_visits=r.cache_visits, gnorm0=r.gnorm0, rel_grad=r.rel_grad,
+                    mismatch_rel=r.mismatch_rel, wave=[r.wave_id, r.wave_real, r.wave_padded],
+                    latency_s=r.latency_s, queue_s=r.queue_s, solve_s=r.solve_s,
+                    collect_s=r.collect_s)
+
+    def wave_fields(waves):
+        return [{k: w[k] for k in ("wave_id", "real", "padded", "iters", "warm",
+                                   "assemble_s", "solve_s", "collect_s")} for w in waves]
+
+    def dv_rel(r, b, v_ref):
+        ref_b = v_ref[b].cpu()
+        return max_err(torch.from_numpy(r.v), ref_b) / float(ref_b.abs().max())
+
+    def cold_round_ok(rnd, v_ref, v_rel):
+        return all(r.iters == bres.iters[b] and r.matvecs == bres.matvecs[b]
+                   and not r.warm_started and (r.wave_real, r.wave_padded) == (2, 2)
+                   and dv_rel(r, b, v_ref) <= v_rel for b, r in enumerate(rnd))
+
+    with tempfile.TemporaryDirectory(prefix="serve_cache_") as cache_dir:
+        serve_cfg = SV.ServeConfig(max_batch=2, use_fused_matvec=True, cache_dir=cache_dir,
+                                   device="cuda")
+        (got, summary, waves), fields = drive("serve", PLAN_FUSED,
+                                              lambda: serve(serve_cfg, rounds))
+        cold, warm, part = got
+        a_step = CK.latest_step(f"{cache_dir}/A")
+        reload = SV.WarmStartCache(cache_dir).lookup("A", shape)
+        reload_equal = reload is not None and np.array_equal(reload.v0, warm[0].v)
+    ok = (not fields["missing"] and not fields["plain_runs"]
+          and cold_round_ok(cold, bres.v, SERVE_V_REL)
+          and warm[0].warm_started and warm[0].cache_visits == 1
+          and abs(warm[0].gnorm0 - cold[0].gnorm0) <= SERVE_GNORM_REL * cold[0].gnorm0
+          and warm[0].iters < cold[0].iters and warm[0].converged
+          and warm[1].warm_started and warm[1].cache_visits == 1 and warm[1].converged
+          and (part[0].wave_real, part[0].wave_padded) == (1, 2)
+          and (part[0].iters, part[0].matvecs) == (cold[0].iters, cold[0].matvecs)
+          and not part[0].warm_started
+          and all(np.isfinite(r.v).all() and r.v.shape == (3,) + shape
+                  for rnd in got for r in rnd)
+          and (summary["completed"], summary["failed"], summary["warm_hits"],
+               summary["waves"]) == (5, 0, 2, 3)
+          and a_step == 2 and reload_equal)
+    emit("serve", ok=ok, size=n, config=dict(max_batch=2, use_fused_matvec=True,
+                                             cache="checkpointed, async", device="cuda"),
+         rounds=[[request_fields(r) for r in rnd] for rnd in got], waves=wave_fields(waves),
+         batch_iters=bres.iters, batch_matvecs=bres.matvecs,
+         cold_max_dv_rel=[dv_rel(r, b, bres.v) for b, r in enumerate(cold)],
+         tol_v_rel=SERVE_V_REL, latency_p50_s=summary["latency_p50_s"],
+         latency_p99_s=summary["latency_p99_s"], pairs_per_sec=summary["pairs_per_sec"],
+         utilization_mean=summary["utilization_mean"],
+         iters_mean_warm=summary["iters_mean_warm"],
+         iters_mean_cold=summary["iters_mean_cold"], summary=summary,
+         checkpoint_latest_step_A=a_step, checkpoint_reload_bit_equal=reload_equal,
+         solve_path_wall_s=walls["solve"], serve_wall_s=fields.pop("wall_s"), **fields)
+    if not ok:
+        return 1
+
+    # the cold round through the mesh mode on a 1 x 1 layout of one NCCL rank
+    with slab_group(dev):
+        layout = G.ensemble_slab_groups(1, 1)
+        slab_cfg = SV.ServeConfig(max_batch=2, use_fused_matvec=True, mesh=layout,
+                                  device="cuda")
+        (sgot, ssummary, swaves), fields = drive("serve_slab", SLAB_REQUIRED,
+                                                 lambda: serve(slab_cfg, rounds[:1]))
+    ok = (not fields["missing"] and not fields["plain_runs"]
+          and cold_round_ok(sgot[0], bres.v, SLAB_V_REL)
+          and (ssummary["completed"], ssummary["failed"]) == (2, 0))
+    emit("serve_slab", ok=ok, size=n, layout=layout.sizes(), backend="nccl",
+         round=[request_fields(r) for r in sgot[0]], waves=wave_fields(swaves),
+         max_dv_rel_vs_batch=[dv_rel(r, b, bres.v) for b, r in enumerate(sgot[0])],
+         tol_v_rel=SLAB_V_REL, serve_wall_s=fields.pop("wall_s"), **fields)
+    if not ok:
+        return 1
+    serve_cold_wall = max(r.latency_s for r in cold)
+    del bres, got, sgot
+
+    # the registration serving launcher, in process
+    argv = ["--smoke", "--device", "cuda"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, fields = drive("serve_cli", _K1_KEYS + ["apply_plan"], lambda: SCLI.main(argv))
+    lines = out.getvalue().splitlines()
+    ok = (rc == 0 and not fields["missing"] and not fields["plain_runs"]
+          and any("completed 6/6" in ln for ln in lines))
+    emit("serve_cli", ok=ok, argv=argv, rc=rc, output=lines, wall_s=fields.pop("wall_s"),
+         **fields)
+    if not ok:
+        return 1
 
     # the LM serving paths at full width, random seeded weights
     lm_walls = {}
@@ -1289,6 +1429,11 @@ def main(argv=None) -> int:
         profile_solve("solve_slab", lambda: R.register_sharded(pair.m0, pair.m1, device=dev,
                                                                **SLAB_KW),
                       walls["solve_slab"])
+    # the server's cold round (no disk cache), against its latency above
+    profile_solve("serve cold round",
+                  lambda: serve(SV.ServeConfig(max_batch=2, use_fused_matvec=True,
+                                               device="cuda"), rounds[:1]),
+                  serve_cold_wall)
     # the qwen1.5-0.5b prefill by kernel group, and its decode loop's idle share
     model, tokens, g = lm_keep
     prefill_s, decode_s = lm_walls["serve_lm:qwen1.5-0.5b"]

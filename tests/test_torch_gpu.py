@@ -25,6 +25,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch import checkpoint as CK
+from repro_torch import serve as SV
 from repro_torch.configs import ARCHS
 from repro_torch.core import interp as I
 from repro_torch.core import registration as R
@@ -393,6 +395,53 @@ def test_register_batch_on_card_matches_cpu(cuda):
     single = R.register(batch.m0[0], batch.m1[0], use_fused_matvec=True, device=cuda)
     assert single.iters == got.iters[0] and single.matvecs == got.matvecs[0]
     assert float((got.v[0] - single.v).abs().max()) <= 1e-6 * float(single.v.abs().max())
+
+
+def _serve_rounds(device, m0, m1, cache_dir):
+    """Pairs 0 and 1 cold, then both again (warm), through one server."""
+    config = SV.ServeConfig(max_batch=2, use_fused_matvec=True, cache_dir=str(cache_dir),
+                            device=device)
+    out = []
+    with SV.Server(config) as srv:
+        for _ in range(2):
+            futs = [srv.submit(SV.Request(m0=m0[i], m1=m1[i], subject=f"s{i}"))
+                    for i in range(2)]
+            out += [f.result(timeout=600) for f in futs]
+    return out, srv.summary()
+
+
+def test_server_on_card_matches_cpu(cuda, tmp_path):
+    """The registration server at 16^3 on the card (donating batch step,
+    fused matvec, checkpointed cache) against the same server on the CPU,
+    over a cold and a warm round: equal counts and warm starts, v within
+    1e-4 * max|v|; K1, K2 and K3 launched and no plain version ran."""
+    batch = S.make_batch(0, (16, 16, 16), 2, device="cpu")
+    ref, s_ref = _serve_rounds("cpu", batch.m0, batch.m1, tmp_path / "cpu")
+    counts.reset()
+    got, s_got = _serve_rounds("cuda", batch.m0.numpy(), batch.m1.numpy(), tmp_path / "cuda")
+    launched = counts.snapshot()
+    for a, b in zip(got, ref):
+        assert (a.iters, a.matvecs, a.converged, a.warm_started, a.cache_visits) == \
+            (b.iters, b.matvecs, b.converged, b.warm_started, b.cache_visits)
+        assert float(abs(a.v - b.v).max()) <= 1e-4 * float(abs(b.v).max())
+    assert [r.warm_started for r in got] == [False, False, True, True]
+    assert s_got["failed"] == 0 and s_got["completed"] == 4 and s_got["warm_hits"] == 2
+    for key in ("stencil_axis:fd8", "stencil_axis:prefilter", "apply_plan",
+                "apply_plan_fused:inc_state", "apply_plan_fused:inc_adjoint"):
+        assert launched.get(key, 0) > 0, key
+    assert not [k for k in launched if k.startswith("plain:")]
+    assert CK.latest_step(str(tmp_path / "cuda" / "s0")) == 2
+
+
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    x = _randn((3, 5, 7), 40, cuda).to(torch.bfloat16)
+    CK.save_checkpoint(str(tmp_path), {"x": x, "n": {"y": x[0]}}, step=1)
+    out = CK.restore_checkpoint(str(tmp_path), {"x": x, "n": {"y": x[0]}}, device="cuda")
+    assert out["x"].device.type == "cuda" and out["x"].dtype == torch.bfloat16
+    assert torch.equal(out["x"].view(torch.int16), x.view(torch.int16))
+    assert torch.equal(out["n"]["y"].view(torch.int16), x[0].view(torch.int16))
+    host = CK.restore_checkpoint(str(tmp_path), {"x": x.cpu()})
+    assert host["x"].device.type == "cpu"
 
 
 K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-4)}

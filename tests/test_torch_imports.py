@@ -42,7 +42,7 @@ def _bad_imports(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "ml_dtypes", "repro"):
                 bad.append(f"{path.name}:{node.lineno} imports {name}")
     return bad
 
@@ -74,6 +74,14 @@ def test_import_scan_covers_the_facade_batch_and_measures():
                  "launch/register", "core/baseline_gd", "core/measures",
                  "core/gauss_newton", "core/registration", "distributed/claire_dist",
                  "distributed/group", "data/synthetic", "interop"):
+        assert f"src/repro_torch/{name}.py" in scanned
+
+
+def test_import_scan_covers_checkpoint_and_serve():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("checkpoint/__init__", "checkpoint/checkpoint", "serve/__init__",
+                 "serve/request", "serve/batching", "serve/cache", "serve/metrics",
+                 "serve/server", "launch/serve_registration", "launch/serve"):
         assert f"src/repro_torch/{name}.py" in scanned
 
 
@@ -119,8 +127,8 @@ def test_cuda_slab_group_without_nccl_raises(monkeypatch, tmp_path):
 def test_import_scan_catches_jax(tmp_path):
     p = tmp_path / "x.py"
     p.write_text("import jax.numpy as jnp\nfrom repro.core import grid\n"
-                 "from repro_torch.core import grid as ok\n")
-    assert len(_bad_imports(p)) == 2
+                 "import ml_dtypes\nfrom repro_torch.core import grid as ok\n")
+    assert len(_bad_imports(p)) == 3
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):
