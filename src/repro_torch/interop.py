@@ -120,16 +120,17 @@ def gradient_state_from_numpy(state: Mapping, device="cuda") -> _grad.GradientSt
 
 def lm_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """The state dict of ``repro_torch.models.Model(cfg)`` (CPU tensors) from
-    the JAX ``Model.init`` params pytree, leaves as numpy arrays (bfloat16
-    ones typed by ``ml_dtypes``). Dense models only.
+    the JAX ``Model.init`` params pytree of any family, leaves as numpy
+    arrays (bfloat16 ones typed by ``ml_dtypes``).
 
     The leaves become tensors as they are; the layout (JAX's segment leaves
-    stacked over their repeats, one state-dict entry per layer in the port)
-    is ``models.api.state_dict_from_tree``'s. Dense weights keep JAX's
-    ``(d_in, d_out)`` layout. The embedding table has ``cfg.vocab_padded``
-    rows (e.g. Qwen1.5's 151 936 tokens padded to 152 064); ``unembed``
-    exists only without tied embeddings, QKV biases only with
-    ``cfg.qkv_bias``.
+    stacked over their repeats, one state-dict entry per layer in the port;
+    the encoder's too) is ``models.api.state_dict_from_tree``'s. Dense
+    weights keep JAX's ``(d_in, d_out)`` layout, expert weights their
+    ``(e, d, f)``. The embedding table has ``cfg.vocab_padded`` rows (e.g.
+    Qwen1.5's 151 936 tokens padded to 152 064); ``unembed`` exists only
+    without tied embeddings, QKV biases only with ``cfg.qkv_bias``; the SSM
+    leaves ``A_log``, ``D`` and ``dt_bias`` are fp32.
     """
     # imported here: the models package loads the K6 wrapper, which the
     # registration side of this module does not need

@@ -3,16 +3,20 @@
     python -m repro_torch.launch.serve_lm --arch qwen1.5-0.5b --requests 8 \\
         --prompt-len 2048 --gen-len 64 [--device cuda] [--seed 0] [--smoke]
 
-Port of ``repro.launch.serve_lm`` with its semantics: a request batch is
-prefilled through ``Model.prefill`` (last-position logits; the prefill's
-self-attention runs kernel K6 on the card), the first token is the greedy
-``argmax`` of those logits, a KV cache of ``prompt + gen`` slots is made and
-``gen`` tokens are decoded greedily from position ``prompt``. As in the JAX
-launcher the prompt's K/V are not written into that cache, so decode attends
-to ``prompt`` zero slots besides its own tokens (ROADMAP queue C).
+Port of ``repro.launch.serve_lm`` with its semantics, for every family of
+``ARCHS``: a request batch (``Model.make_batch``: tokens, with frames for
+encdec or patches for vlm) is prefilled through ``Model.prefill``
+(last-position logits; the prefill's self-attention runs kernel K6 on the
+card), the first token is the greedy ``argmax`` of those logits,
+``make_cache(B, prompt + gen)`` makes the decode cache and ``gen`` tokens are
+decoded greedily from position ``prompt`` (the prefill's sequence length:
+tokens, patches + text tokens, or frames). As in the JAX launcher the
+prompt's K/V, the SSM state and the encoder's cross K/V are not written into
+that cache: decode attends to ``prompt`` zero slots besides its own tokens,
+starts from a zero SSM state, and cross-attends to zeros (ROADMAP queue C).
 
 Weights are random, drawn with the JAX package's scales from a CPU
-``torch.Generator`` seeded ``--seed`` (the prompts from ``--seed + 1``), so a
+``torch.Generator`` seeded ``--seed`` (the inputs from ``--seed + 1``), so a
 seed gives the same model on the card and on the CPU. ``--device`` defaults
 to ``cuda``; without a card that raises.
 """
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
 import torch
 
@@ -42,14 +46,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model, tokens: torch.Tensor, gen_len: int) -> ServeResult:
-    """Prefill ``tokens`` (B, P), then decode ``gen_len`` tokens greedily."""
-    b, p = tokens.shape
+def prompt_len(batch: Mapping[str, torch.Tensor]) -> int:
+    """The prefill's sequence length: frames, or patches + text tokens."""
+    if "frames" in batch:
+        return batch["frames"].shape[1]
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
+
+
+def serve(model, batch: Mapping[str, torch.Tensor], gen_len: int) -> ServeResult:
+    """Prefill ``batch`` (``make_batch``'s), then decode ``gen_len`` tokens
+    greedily from position ``prompt_len(batch)``."""
+    b, p = batch["tokens"].shape[0], prompt_len(batch)
     dev = model.dev
-    tokens = tokens.to(dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
     _sync(dev)
     t0 = time.perf_counter()
-    prefill_logits = model.prefill({"tokens": tokens})
+    prefill_logits = model.prefill(batch)
     out = [torch.argmax(prefill_logits[:, -1], dim=-1)[:, None]]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -84,7 +96,7 @@ def main(argv=None):
     shape = ShapeConfig("serve", p, b, "prefill")
     batch = model.make_batch(torch.Generator().manual_seed(args.seed + 1), shape)["batch"]
 
-    res = serve(model, batch["tokens"], g)
+    res = serve(model, batch, g)
     print(f"[serve] prefill {b} x {p} tokens: {res.prefill_s:.3f}s")
     print(f"[serve] decoded {g} tokens x {b} reqs: {res.decode_s:.3f}s "
           f"({b * g / max(res.decode_s, 1e-9):.1f} tok/s)")

@@ -1,18 +1,24 @@
 """Model facade: one ``nn.Module`` per architecture config with init,
 prefill and decode entry points.
 
-Port of ``repro.models.api`` for the dense family. The JAX ``Model`` is
-stateless and takes its params pytree in every call; here the params live
-in the module as (frozen) parameters, in the JAX tree's layout
-(``embed.table``, ``final_norm.scale``, ``decoder.seg0.sub0.<layer>.mixer.wq.w``,
-...; ``unembed.table`` when the embeddings are not tied). A model is built
-with storage only (on the ``meta`` device, like JAX's ``abstract_params``);
-``init(generator)`` draws the weights with JAX's scales, and
-``load_params(state)`` takes a state dict; :func:`state_dict_from_tree` makes
-one from a tree in the JAX layout (``interop.lm_params_from_jax``).
+Port of ``repro.models.api`` for every family (dense, moe, ssm, hybrid,
+encdec, vlm). The JAX ``Model`` is stateless and takes its params pytree in
+every call; here the params live in the module as (frozen) parameters, in
+the JAX tree's layout (``embed.table``, ``final_norm.scale``,
+``decoder.seg0.sub0.<layer>.mixer.wq.w``, ...; ``unembed.table`` when the
+embeddings are not tied; ``encoder.seg0.sub0.<layer>...`` and
+``enc_norm`` for encdec). A model is built with storage only (on the
+``meta`` device, like JAX's ``abstract_params``); ``init(generator)`` draws
+the weights with JAX's scales, and ``load_params(state)`` takes a state
+dict; :func:`state_dict_from_tree` makes one from a tree in the JAX layout
+(``interop.lm_params_from_jax``).
 
-Batch layouts (int64 tokens): prefill {"tokens": (B,S)}; decode tokens
-(B,1) + cache + int position. Inference runs under ``torch.inference_mode``.
+Batch layouts (int64 tokens, bf16 float inputs), as in JAX:
+  LM family : {"tokens": (B,S)}
+  encdec    : {"frames": (B,S,D), "tokens": (B,dec_len(S))}
+  vlm       : {"patches": (B,P,D), "tokens": (B,S-P)}
+Decode: tokens (B,1) + cache + int position. Inference runs under
+``torch.inference_mode``; training is not ported (ROADMAP A20).
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from . import transformer as T
 
 Params = Dict[str, Any]
 
-#: families with a port; the others raise, naming the ROADMAP item.
-PORTED_FAMILIES = ("dense",)
+#: families with a port; any other raises.
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 class TensorSpec(NamedTuple):
@@ -83,18 +89,48 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 def _tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _sinusoidal(seq: int, d: int, dtype, device) -> torch.Tensor:
+    """(seq, d) sinusoidal positions: sin then cos, cut to d."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return pe[:, :d].to(dtype)
+
+
+def _sinusoidal_at(position: int, d: int, dtype, device) -> torch.Tensor:
+    """The sinusoidal encoding of one position -> (d,)."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    pos = torch.tensor(float(position), dtype=torch.float32, device=device)
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return pe[:d].to(dtype)
+
+
+def _unstack(seg: Mapping, n_rep: int, prefix: str) -> Dict[str, list]:
+    """One segment's leaves stacked over ``n_rep`` repeats -> one tree per
+    repeat (``{"sub<j>": [per-repeat tree]}``)."""
+    for key, leaf in _flatten(seg, prefix).items():
+        if leaf.shape[0] != n_rep:
+            raise ValueError(f"{key}: {leaf.shape[0]} stacked layers, expected {n_rep}")
+    return {sub: [_tree_map(lambda t, r=r: t[r], sub_tree) for r in range(n_rep)]
+            for sub, sub_tree in seg.items()}
 
 
 def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """The state dict of ``Model(cfg)`` from a params tree of tensors in the
-    JAX layout, where each decoder segment's leaves are stacked over its
-    repeats (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep, d_in,
-    d_out)``); the model keeps one entry per layer
-    (``decoder.seg0.sub0.<r>.mixer.wq.w``)."""
+    JAX layout, where each decoder (and encoder) segment's leaves are stacked
+    over its repeats (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep,
+    d_in, d_out)``); the model keeps one entry per layer
+    (``decoder.seg0.sub0.<r>.mixer.wq.w``). The SSM leaves ``A_log``, ``D``
+    and ``dt_bias`` are fp32 in any model, as in JAX."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP A20)")
+        raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     if ("unembed" in tree) == bool(cfg.tie_embeddings):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the params "
                          f"{'have' if 'unembed' in tree else 'lack'} an unembed table")
@@ -102,17 +138,17 @@ def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     if rows != cfg.vocab_padded:
         raise ValueError(f"embedding has {rows} rows, expected vocab_padded "
                          f"{cfg.vocab_padded} (vocab {cfg.vocab_size})")
-    decoder = {}
-    for si, (n_rep, _) in enumerate(T.segments(cfg)):
-        seg = tree["decoder"][f"seg{si}"]
-        for key, leaf in _flatten(seg, f"decoder.seg{si}.").items():
-            if leaf.shape[0] != n_rep:
-                raise ValueError(f"{key}: {leaf.shape[0]} stacked layers, expected {n_rep}")
-        decoder[f"seg{si}"] = {sub: [_tree_map(lambda t, r=r: t[r], sub_tree)
-                                     for r in range(n_rep)]
-                               for sub, sub_tree in seg.items()}
-    top = {k: tree[k] for k in ("embed", "final_norm", "unembed") if k in tree}
-    return _flatten({**top, "decoder": decoder})
+    if ("encoder" in tree) != bool(cfg.is_encdec):
+        raise ValueError(f"is_encdec={cfg.is_encdec} but the params "
+                         f"{'have' if 'encoder' in tree else 'lack'} an encoder")
+    out = {k: tree[k] for k in ("embed", "final_norm", "unembed", "enc_norm") if k in tree}
+    out["decoder"] = {f"seg{si}": _unstack(tree["decoder"][f"seg{si}"], n_rep,
+                                           f"decoder.seg{si}.")
+                      for si, (n_rep, _) in enumerate(T.segments(cfg))}
+    if cfg.is_encdec:
+        out["encoder"] = {"seg0": _unstack(tree["encoder"]["seg0"], cfg.n_enc_layers,
+                                           "encoder.seg0.")}
+    return _flatten(out)
 
 
 class Model(nn.Module):
@@ -120,8 +156,7 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (ROADMAP A20); "
-                f"ported: {PORTED_FAMILIES}")
+                f"model family {cfg.family!r} is not ported; ported: {PORTED_FAMILIES}")
         self.cfg = cfg
         self.dev = _device.resolve(device)
         self.param_dtype = L.dtype_of(cfg.param_dtype)
@@ -139,10 +174,16 @@ class Model(nn.Module):
         p: Params = {
             "embed": L.make_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, device),
             "final_norm": norm(cfg.d_model, dt, device),
-            "decoder": T.make_stack(gen, cfg, dt, device),
+            "decoder": T.make_stack(gen, cfg, dt, device, cross=cfg.is_encdec),
         }
         if not cfg.tie_embeddings:
             p["unembed"] = L.make_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, device)
+        if cfg.is_encdec:
+            # the encoder: n_enc_layers non-causal (attn, dense) layers
+            p["encoder"] = {"seg0": {"sub0": [
+                T.make_sublayer(gen, cfg, ("attn", "dense"), dt, device)
+                for _ in range(cfg.n_enc_layers)]}}
+            p["enc_norm"] = norm(cfg.d_model, dt, device)
         return p
 
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
@@ -177,6 +218,23 @@ class Model(nn.Module):
     # forward pieces
     # ------------------------------------------------------------------
 
+    def _encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
+        cfg, cd = self.cfg, self.compute_dtype
+        x = frames.to(device=self.dev, dtype=cd)
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, cd, self.dev)[None]
+        for layer in p["encoder"]["seg0"]["sub0"]:
+            x, _ = T.sublayer_apply(layer, cfg, ("attn", "dense"), x, cd, causal=False)
+        return L.norm_apply(p["enc_norm"], x, cfg.norm_eps, cd)
+
+    def _embed_inputs(self, p: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        cfg, cd = self.cfg, self.compute_dtype
+        x = L.embed(p["embed"], batch["tokens"].to(self.dev), cd)
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(device=self.dev, dtype=cd), x], dim=1)
+        if cfg.is_encdec:
+            x = x + _sinusoidal(x.shape[1], cfg.d_model, cd, self.dev)[None]
+        return x
+
     def _logits(self, p: Params, x) -> torch.Tensor:
         cfg = self.cfg
         x = L.norm_apply(p["final_norm"], x, cfg.norm_eps, self.compute_dtype)
@@ -189,26 +247,49 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Forward over the prompt; returns the last position's logits over
-        the padded vocabulary, (B, 1, V_padded)."""
+        """Forward over the prompt (``tokens``, with ``frames`` for encdec or
+        ``patches`` for vlm); returns the last position's logits over the
+        padded vocabulary, (B, 1, V_padded)."""
         p = self.params()
-        x = L.embed(p["embed"], batch["tokens"].to(self.dev), self.compute_dtype)
-        x = T.stack_apply(p["decoder"], self.cfg, x, self.compute_dtype, causal=True)
+        enc = self._encode(p, batch["frames"]) if self.cfg.is_encdec else None
+        x = self._embed_inputs(p, batch)
+        x, _ = T.stack_apply(p["decoder"], self.cfg, x, self.compute_dtype, causal=True,
+                             enc_states=enc)
         return self._logits(p, x[:, -1:])
 
     @torch.inference_mode()
     def decode_step(self, cache: Params, tokens: torch.Tensor, position: int):
         """One token per request at ``position``: (logits (B,1,V_padded),
         cache), the cache updated in place."""
+        cfg = self.cfg
         p = self.params()
         x = L.embed(p["embed"], tokens.to(self.dev), self.compute_dtype)
-        x, cache = T.stack_decode(p["decoder"], self.cfg, x, cache, int(position),
-                                  self.compute_dtype)
+        if cfg.is_encdec:
+            x = x + _sinusoidal_at(position, cfg.d_model, self.compute_dtype,
+                                   self.dev)[None, None, :]
+        x, cache = T.stack_decode(p["decoder"], cfg, x, cache, int(position),
+                                  self.compute_dtype, has_cross=cfg.is_encdec)
         return self._logits(p, x), cache
 
     @torch.inference_mode()
     def make_cache(self, batch: int, seq: int) -> Params:
-        return T.make_stack_cache(self.cfg, batch, seq, self.dev)
+        """Zero decode caches for ``seq`` positions: for encdec ``dec_len(seq)``
+        self-attention slots and ``seq`` cross-attention slots, as in JAX."""
+        return self._cache(batch, seq, self.dev)
+
+    def _cache(self, batch: int, seq: int, device) -> Params:
+        if self.cfg.is_encdec:
+            return T.make_stack_cache(self.cfg, batch, self.dec_len(seq), device,
+                                      cross_seq=seq)
+        return T.make_stack_cache(self.cfg, batch, seq, device)
+
+    def dec_len(self, seq: int) -> int:
+        return max(seq // self.cfg.dec_ratio, 16)
+
+    def text_len(self, seq: int) -> int:
+        if self.cfg.family == "vlm":
+            return seq - self.cfg.n_patches
+        return seq
 
     # ------------------------------------------------------------------
     # inputs
@@ -217,19 +298,24 @@ class Model(nn.Module):
     def input_specs(self, shape_cfg) -> Dict:
         """Shape and dtype of every model input of one prefill or decode
         cell, as :class:`TensorSpec` leaves."""
+        cfg = self.cfg
         b, s = shape_cfg.global_batch, shape_cfg.seq_len
-        i64 = torch.int64
+        i64, bf16 = torch.int64, torch.bfloat16
         if shape_cfg.kind == "prefill":
-            return {"batch": {"tokens": TensorSpec((b, s), i64)}}
+            if cfg.is_encdec:
+                batch = {"frames": TensorSpec((b, s, cfg.d_model), bf16),
+                         "tokens": TensorSpec((b, self.dec_len(s)), i64)}
+            elif cfg.family == "vlm":
+                batch = {"patches": TensorSpec((b, cfg.n_patches, cfg.d_model), bf16),
+                         "tokens": TensorSpec((b, self.text_len(s)), i64)}
+            else:
+                batch = {"tokens": TensorSpec((b, s), i64)}
+            return {"batch": batch}
         if shape_cfg.kind != "decode":
             raise NotImplementedError(f"{shape_cfg.kind!r} cells: training is not ported "
                                       "yet (ROADMAP A20)")
-        cache = {
-            f"seg{si}": {f"sub{j}": [
-                {n: TensorSpec((b, s, self.cfg.n_kv_heads, self.cfg.head_dim),
-                               torch.bfloat16) for n in ("k", "v")}
-                for _ in range(n_rep)] for j in range(len(sigs))}
-            for si, (n_rep, sigs) in enumerate(T.segments(self.cfg))}
+        cache = _tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                          self._cache(b, s, torch.device("meta")))
         return {"cache": cache, "tokens": TensorSpec((b, 1), i64),
                 "position": TensorSpec((), i64)}
 

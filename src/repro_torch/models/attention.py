@@ -1,8 +1,8 @@
-"""GQA self-attention: the prefill path through the flash-attention kernel
-(K6) and the KV-cache decode path.
+"""GQA attention: the self-attention prefill path through the
+flash-attention kernel (K6), the KV-cache decode path, and cross-attention
+(encoder-decoder).
 
-Port of the self-attention half of ``repro.models.attention``
-(cross-attention waits for the encoder-decoder family, ROADMAP A20).
+Port of ``repro.models.attention``.
 
 Layouts, as in the JAX package:
   hidden        (B, S, D)
@@ -10,11 +10,12 @@ Layouts, as in the JAX package:
   k, v          (B, S, KV, hd)
   decode cache  per layer {"k": (B, S, KV, hd), "v": ...} (bf16) + int position
 
-The prefill path folds the heads into the leading dimension and calls
-``kernels.flashattn.flash_attention``, whose contract is the TPU kernel's:
-MHA on (BH, S, hd). For G > 1 the K/V heads are repeated G times first (a
-plain copy); folding the group into the kernel's indexing is later work.
-The decode path is plain PyTorch, as JAX computes it outside any kernel.
+The self-attention prefill folds the heads into the leading dimension and
+calls ``kernels.flashattn.flash_attention``, whose contract is the TPU
+kernel's: MHA on (BH, S, hd) with K/V as long as q. For G > 1 the K/V heads
+are repeated G times first (a plain copy); folding the group into the
+kernel's indexing is later work. Cross-attention (K/V of another length) and
+the decode paths are plain PyTorch, as JAX computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from . import layers as L
 Params = Dict[str, Any]
 
 
-def make_attention(gen, cfg, dtype, device) -> Params:
+def make_attention(gen, cfg, dtype, device, cross: bool = False) -> Params:
+    """Q/K/V/O projections; a cross-attention block has the same params
+    (its K/V project the encoder states)."""
     d, hd = cfg.d_model, cfg.head_dim
     return {
         "wq": L.make_dense(gen, d, cfg.n_heads * hd, dtype, device, bias=cfg.qkv_bias),
@@ -40,17 +43,21 @@ def make_attention(gen, cfg, dtype, device) -> Params:
     }
 
 
-def _qkv(p, cfg, x, positions, compute_dtype):
+def _split_heads(x, n_kv, group, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_kv, group, hd)
+
+
+def _qkv(p, cfg, x, kv_x, positions, kv_positions, compute_dtype):
     hd = cfg.head_dim
     n_kv = cfg.n_kv_heads
     group = cfg.n_heads // n_kv
-    b, s, _ = x.shape
-    q = L.dense(p["wq"], x, compute_dtype).reshape(b, s, n_kv, group, hd)
-    k = L.dense(p["wk"], x, compute_dtype).reshape(b, s, n_kv, hd)
-    v = L.dense(p["wv"], x, compute_dtype).reshape(b, s, n_kv, hd)
+    q = _split_heads(L.dense(p["wq"], x, compute_dtype), n_kv, group, hd)
+    k = L.dense(p["wk"], kv_x, compute_dtype).reshape(*kv_x.shape[:2], n_kv, hd)
+    v = L.dense(p["wv"], kv_x, compute_dtype).reshape(*kv_x.shape[:2], n_kv, hd)
     if cfg.use_rope:
         q = apply_rope_grouped(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        k = L.apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -67,11 +74,11 @@ def apply_rope_grouped(q, positions, theta):
 
 def multihead_attention(q, k, v, causal: bool):
     """q: (B,S,KV,G,hd); k, v: (B,S,KV,hd) -> (B,S,KV,G,hd) in q's dtype.
-    Self-attention only (as many keys as queries)."""
+    Self-attention only (as many keys as queries): K6's contract."""
     b, s, n_kv, g, hd = q.shape
     if k.shape[1] != s:
-        raise NotImplementedError("attention with another key length (cross-attention) "
-                                  "is not ported yet (ROADMAP A20)")
+        raise ValueError(f"K6 takes as many keys as queries, got {k.shape[1]} and {s}; "
+                         "cross-attention goes through cross_attention")
     bh = b * n_kv * g
     qf = q.permute(0, 2, 3, 1, 4).reshape(bh, s, hd)
     kf = k.permute(0, 2, 1, 3)                               # (B, KV, S, hd)
@@ -88,8 +95,32 @@ def multihead_attention(q, k, v, causal: bool):
 def self_attention(p, cfg, x, compute_dtype, causal: bool = True):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(p, cfg, x, positions, compute_dtype)
+    q, k, v = _qkv(p, cfg, x, x, positions, positions, compute_dtype)
     out = multihead_attention(q, k, v, causal)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(compute_dtype)
+    return L.dense(p["wo"], out, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (prefill): plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(p, cfg, x, enc_states, compute_dtype):
+    """x: (B, S, D) attends to enc_states (B, S_enc, D), unmasked.
+
+    JAX's blockwise XLA attention in one block: fp32 scores, the
+    unnormalised p in the compute dtype for P.V, divided by the fp32 row sum
+    at the end."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    enc_pos = torch.arange(enc_states.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, enc_states, positions, enc_pos, compute_dtype)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    sc = torch.einsum("bqkgd,bckd->bkgqc", q.float(), k.float()) * scale
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bkgqc,bckd->bkgqd", e.to(v.dtype), v).float()
+    out = (pv / torch.clamp(e.sum(dim=-1), min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(compute_dtype)
     return L.dense(p["wo"], out, compute_dtype)
 
@@ -109,15 +140,19 @@ def decode_self_attention(p, cfg, x, cache, position: int, compute_dtype):
     """x: (B, 1, D); cache k/v: (B, S, KV, hd); position: int.
 
     Returns (out (B,1,D), cache). The new token's K/V overwrite slot
-    ``position`` of the cache in place (JAX returns an updated copy).
+    ``min(position, S - 1)`` of the cache in place (JAX returns an updated
+    copy; its ``dynamic_update_slice`` clamps the slot the same way). RoPE
+    and the mask take the unclamped position: past the end every slot is
+    valid.
     """
     b = x.shape[0]
     hd = cfg.head_dim
     pos = torch.full((b, 1), position, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, pos, compute_dtype)
+    q, k_new, v_new = _qkv(p, cfg, x, x, pos, pos, compute_dtype)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, position] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, position] = v_new[:, 0].to(v_cache.dtype)
+    slot = min(position, k_cache.shape[1] - 1)
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
 
     s = torch.einsum("bqkgd,bskd->bkgqs", q, k_cache.to(q.dtype))
     s = s.float() * (1.0 / math.sqrt(hd))
@@ -128,3 +163,17 @@ def decode_self_attention(p, cfg, x, cache, position: int, compute_dtype):
     out = torch.einsum("bkgqs,bskd->bqkgd", pattn.to(v_cache.dtype), v_cache)
     out = out.reshape(b, 1, cfg.n_heads * hd).to(compute_dtype)
     return L.dense(p["wo"], out, compute_dtype), cache
+
+
+def decode_cross_attention(p, cfg, x, enc_k, enc_v, compute_dtype):
+    """Cross-attention of x (B, 1, D) against precomputed encoder K/V
+    (B, S_enc, KV, hd)."""
+    b = x.shape[0]
+    hd, n_kv = cfg.head_dim, cfg.n_kv_heads
+    q = _split_heads(L.dense(p["wq"], x, compute_dtype), n_kv, cfg.n_heads // n_kv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, enc_k.to(q.dtype))
+    s = s.float() * (1.0 / math.sqrt(hd))
+    pattn = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", pattn.to(enc_v.dtype), enc_v)
+    out = out.reshape(b, 1, cfg.n_heads * hd).to(compute_dtype)
+    return L.dense(p["wo"], out, compute_dtype)

@@ -1,13 +1,16 @@
-"""Transformer LM assembly: segments, per-layer params, the prefill stack and
-the decode stack.
+"""Transformer / SSM / hybrid LM assembly: segments, per-layer params, the
+prefill stack and the decode stack.
 
-Port of ``repro.models.transformer`` for the signature ``("attn", "dense")``
-(the dense family); SSM and MoE layers wait for ROADMAP A20. Layers are
-grouped into SEGMENTS, maximal runs of layers with identical structure, as
-in the JAX package. JAX stacks a segment's params on a leading axis and
-scans over them; here a segment holds a list over its repeats,
-``p["seg<i>"]["sub<j>"][r]``, the layout of JAX's decode cache, and the
-stack is a Python loop (no remat: inference only).
+Port of ``repro.models.transformer``. Layers are grouped into SEGMENTS,
+maximal runs of layers with identical structure, as in the JAX package; a
+segment body may hold several different sub-layers (the hybrid's one
+periodic segment, Jamba's 8-layer period). JAX stacks a segment's params on
+a leading axis and scans over them; here a segment holds a list over its
+repeats, ``p["seg<i>"]["sub<j>"][r]``, the layout of JAX's decode cache, and
+the stack is a Python loop (no remat: inference only).
+
+Layer signature: (mixer, mlp) with mixer in {"attn", "ssm"} and mlp in
+{"dense", "moe", "none"}.
 """
 
 from __future__ import annotations
@@ -18,11 +21,11 @@ import torch
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 
 Params = Dict[str, Any]
 Sig = Tuple[str, str]
-
-PORTED_SIGNATURE: Sig = ("attn", "dense")
 
 
 def segments(cfg) -> List[Tuple[int, List[Sig]]]:
@@ -56,36 +59,55 @@ def segments(cfg) -> List[Tuple[int, List[Sig]]]:
     return segs
 
 
-def _check_sig(sig: Sig) -> None:
-    if sig != PORTED_SIGNATURE:
-        raise NotImplementedError(f"layer signature {sig}: only {PORTED_SIGNATURE} "
-                                  "(the dense family) is ported; SSM and MoE layers "
-                                  "wait for ROADMAP A20")
-
-
 # ---------------------------------------------------------------------------
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
 
 
-def make_sublayer(gen, cfg, sig: Sig, dtype, device) -> Params:
-    _check_sig(sig)
+def make_sublayer(gen, cfg, sig: Sig, dtype, device, cross: bool = False) -> Params:
+    mixer, mlp_kind = sig
     norm_fn = L.make_norm if cfg.rmsnorm else L.make_layernorm
-    p: Params = {"norm1": norm_fn(cfg.d_model, dtype, device),
-                 "mixer": A.make_attention(gen, cfg, dtype, device),
-                 "norm2": norm_fn(cfg.d_model, dtype, device)}
-    # fine-grained MoE models use a wide dense FFN on dense layers
-    dff = cfg.d_ff if cfg.d_ff else cfg.moe_d_ff
-    p["mlp"] = L.make_mlp(gen, cfg.d_model, dff, dtype, device, act=cfg.act)
+    p: Params = {"norm1": norm_fn(cfg.d_model, dtype, device)}
+    if mixer == "attn":
+        p["mixer"] = A.make_attention(gen, cfg, dtype, device)
+    else:
+        p["mixer"] = S.make_ssm(gen, cfg, dtype, device)
+    if cross:
+        p["norm_cross"] = norm_fn(cfg.d_model, dtype, device)
+        p["cross"] = A.make_attention(gen, cfg, dtype, device, cross=True)
+    if mlp_kind != "none":
+        p["norm2"] = norm_fn(cfg.d_model, dtype, device)
+        if mlp_kind == "moe":
+            p["mlp"] = M.make_moe(gen, cfg, dtype, device)
+        else:
+            # fine-grained MoE models use a wide dense FFN on dense layers
+            dff = cfg.d_ff if cfg.d_ff else cfg.moe_d_ff
+            p["mlp"] = L.make_mlp(gen, cfg.d_model, dff, dtype, device, act=cfg.act)
     return p
 
 
-def sublayer_apply(p: Params, cfg, sig: Sig, x, compute_dtype, causal=True):
-    _check_sig(sig)
+def sublayer_apply(p: Params, cfg, sig: Sig, x, compute_dtype, causal=True,
+                   enc_states=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (x, MoE aux loss, 0 for other layers)."""
+    mixer, mlp_kind = sig
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps, compute_dtype)
-    x = x + A.self_attention(p["mixer"], cfg, h, compute_dtype, causal=causal)
-    h = L.norm_apply(p["norm2"], x, cfg.norm_eps, compute_dtype)
-    return x + L.mlp(p["mlp"], h, cfg.act, compute_dtype)
+    if mixer == "attn":
+        h = A.self_attention(p["mixer"], cfg, h, compute_dtype, causal=causal)
+    else:
+        h = S.ssm_block(p["mixer"], cfg, h, compute_dtype)
+    x = x + h
+    if "cross" in p and enc_states is not None:
+        h = L.norm_apply(p["norm_cross"], x, cfg.norm_eps, compute_dtype)
+        x = x + A.cross_attention(p["cross"], cfg, h, enc_states, compute_dtype)
+    if mlp_kind != "none":
+        h = L.norm_apply(p["norm2"], x, cfg.norm_eps, compute_dtype)
+        if mlp_kind == "moe":
+            h, aux = M.moe_block(p["mlp"], cfg, h, compute_dtype)
+        else:
+            h = L.mlp(p["mlp"], h, cfg.act, compute_dtype)
+        x = x + h
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -93,61 +115,86 @@ def sublayer_apply(p: Params, cfg, sig: Sig, x, compute_dtype, causal=True):
 # ---------------------------------------------------------------------------
 
 
-def make_stack(gen, cfg, dtype, device) -> Params:
+def make_stack(gen, cfg, dtype, device, cross: bool = False) -> Params:
     """Params: {"seg<i>": {"sub<j>": [per-repeat params]}}."""
     p: Params = {}
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
-        per = [[make_sublayer(gen, cfg, sig, dtype, device) for sig in sigs]
+        per = [[make_sublayer(gen, cfg, sig, dtype, device, cross=cross) for sig in sigs]
                for _ in range(n_rep)]
         p[f"seg{si}"] = {f"sub{j}": [per[r][j] for r in range(n_rep)]
                          for j in range(len(sigs))}
     return p
 
 
-def stack_apply(p: Params, cfg, x, compute_dtype, causal=True):
-    """Run every layer in order (a Python loop; no remat for inference)."""
+def stack_apply(p: Params, cfg, x, compute_dtype, causal=True, enc_states=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run every layer in order; returns (x, the sum of the MoE aux losses)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
         seg = p[f"seg{si}"]
         for r in range(n_rep):
             for j, sig in enumerate(sigs):
-                x = sublayer_apply(seg[f"sub{j}"][r], cfg, sig, x, compute_dtype,
-                                   causal=causal)
-    return x
+                x, a = sublayer_apply(seg[f"sub{j}"][r], cfg, sig, x, compute_dtype,
+                                      causal=causal, enc_states=enc_states)
+                aux_total = aux_total + a
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
-# Decode stacks (one KV buffer pair per layer)
+# Decode stacks (separate per-layer buffers, updated in place)
 # ---------------------------------------------------------------------------
 
 
-def make_stack_cache(cfg, batch: int, seq: int, device, dtype=None) -> Params:
+def make_stack_cache(cfg, batch: int, seq: int, device, cross_seq: int = 0,
+                     dtype=None) -> Params:
     """Cache mirroring the segment structure: ``cache["seg<i>"]["sub<j>"][r]``
-    is layer r's ``{"k", "v"}``, separate per-layer buffers updated in place
-    (bf16 unless ``dtype`` says otherwise, as in the JAX package)."""
+    is layer r's ``{"k", "v"}`` (bf16 unless ``dtype`` says otherwise, as in
+    the JAX package), ``{"self": {"k", "v"}, "cross": {"k", "v"}}`` with
+    ``cross_seq`` encoder slots, or an SSM layer's fp32 ``{"conv", "state"}``."""
     dtype = dtype or torch.bfloat16
-    cache: Params = {}
-    for si, (n_rep, sigs) in enumerate(segments(cfg)):
-        seg: Params = {}
-        for j, sig in enumerate(sigs):
-            _check_sig(sig)
-            seg[f"sub{j}"] = [A.make_cache(cfg, batch, seq, device, dtype)
-                              for _ in range(n_rep)]
-        cache[f"seg{si}"] = seg
-    return cache
+
+    def one(mixer):
+        if mixer == "ssm":
+            return S.make_ssm_cache(cfg, batch, device)
+        sub = A.make_cache(cfg, batch, seq, device, dtype)
+        if cross_seq:
+            return {"self": sub, "cross": A.make_cache(cfg, batch, cross_seq, device, dtype)}
+        return sub
+
+    return {f"seg{si}": {f"sub{j}": [one(mixer) for _ in range(n_rep)]
+                         for j, (mixer, _) in enumerate(sigs)}
+            for si, (n_rep, sigs) in enumerate(segments(cfg))}
 
 
-def stack_decode(p: Params, cfg, x, cache, position: int, compute_dtype):
-    """One decode step through all layers; returns (x, cache)."""
+def stack_decode(p: Params, cfg, x, cache, position: int, compute_dtype,
+                 has_cross: bool = False):
+    """One decode step through all layers; returns (x, cache). The K/V
+    buffers are written in place; an SSM layer's entry is replaced."""
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
         seg_p, seg_c = p[f"seg{si}"], cache[f"seg{si}"]
         for r in range(n_rep):
-            for j, sig in enumerate(sigs):
-                _check_sig(sig)
-                sp = seg_p[f"sub{j}"][r]
+            for j, (mixer, mlp_kind) in enumerate(sigs):
+                sp, sc = seg_p[f"sub{j}"][r], seg_c[f"sub{j}"][r]
                 hn = L.norm_apply(sp["norm1"], x, cfg.norm_eps, compute_dtype)
-                out, seg_c[f"sub{j}"][r] = A.decode_self_attention(
-                    sp["mixer"], cfg, hn, seg_c[f"sub{j}"][r], position, compute_dtype)
-                x = x + out
-                hn = L.norm_apply(sp["norm2"], x, cfg.norm_eps, compute_dtype)
-                x = x + L.mlp(sp["mlp"], hn, cfg.act, compute_dtype)
+                if mixer == "attn":
+                    out, _ = A.decode_self_attention(
+                        sp["mixer"], cfg, hn, sc["self"] if has_cross else sc, position,
+                        compute_dtype)
+                    x = x + out
+                    if has_cross:
+                        hn = L.norm_apply(sp["norm_cross"], x, cfg.norm_eps, compute_dtype)
+                        x = x + A.decode_cross_attention(
+                            sp["cross"], cfg, hn, sc["cross"]["k"], sc["cross"]["v"],
+                            compute_dtype)
+                else:
+                    out, seg_c[f"sub{j}"][r] = S.ssm_decode_step(sp["mixer"], cfg, hn, sc,
+                                                                 compute_dtype)
+                    x = x + out
+                if mlp_kind != "none":
+                    hn = L.norm_apply(sp["norm2"], x, cfg.norm_eps, compute_dtype)
+                    if mlp_kind == "moe":
+                        out, _ = M.moe_block(sp["mlp"], cfg, hn, compute_dtype)
+                    else:
+                        out = L.mlp(sp["mlp"], hn, cfg.act, compute_dtype)
+                    x = x + out
     return x, cache

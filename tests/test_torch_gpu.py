@@ -496,11 +496,79 @@ def test_smoke_serve_on_card_matches_cpu(cuda, arch):
     cfg = dataclasses.replace(ARCHS[arch].smoke(), head_dim=64, param_dtype="float32",
                               compute_dtype="float32")
     tok = torch.randint(0, cfg.vocab_size, (3, 100), generator=torch.Generator().manual_seed(1))
-    ref = serve_lm.serve(build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)), tok, 6)
+    batch = {"tokens": tok}
+    ref = serve_lm.serve(build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)), batch,
+                         6)
     model = build_model(cfg, cuda).init(torch.Generator().manual_seed(0))
     counts.reset()
-    got = serve_lm.serve(model, tok, 6)
+    got = serve_lm.serve(model, batch, 6)
     assert counts.snapshot() == {"flash_attention": cfg.n_layers}
     assert torch.equal(got.ids.cpu(), ref.ids)
     want = ref.prefill_logits
     assert float((got.prefill_logits.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+#: K6 at the prefill shapes of the non-dense LM paths (bf16): deepseek's hd
+#: 128 MHA, jamba's GQA heads after the K/V repeat, internvl2's 256 + 1792
+#: positions, whisper's ragged non-causal encoder (1500 frames) and causal
+#: decoder (187 tokens).
+K6_LM_SHAPES = {"deepseek": (128, 2048, 128, True), "jamba": (256, 2048, 128, True),
+                "internvl2": (112, 2048, 64, True), "whisper-enc": (160, 1500, 64, False),
+                "whisper-dec": (160, 187, 64, True)}
+
+
+@pytest.mark.parametrize("case", sorted(K6_LM_SHAPES))
+def test_k6_lm_family_shapes(cuda, case):
+    bh, s, hd, causal = K6_LM_SHAPES[case]
+    q, k, v = (_randn((bh, s, hd), 50 + i, cuda).bfloat16() for i in range(3))
+    counts.reset()
+    got = FA.flash_attention(q, k, v, causal)
+    assert counts.snapshot() == {"flash_attention": 1}
+    ref = FA.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), ref.float(), **K6_TOL[torch.bfloat16])
+    assert float((got != ref).float().mean()) <= K6_BF16_DIFFER
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-780m", "jamba-v0.1-52b",
+                                  "whisper-large-v3", "internvl2-1b"])
+def test_smoke_family_serve_on_card_matches_cpu(cuda, arch):
+    """Each non-dense family's smoke config (head size 64 for K6), fp32, the
+    same seeded weights and batch on the card and on the CPU: equal greedy
+    ids, prefill logits within 1e-4 * max|logits|, equal MoE routing, K6
+    once per self-attention layer (the encoder's too) and no plain version."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(ARCHS[arch].smoke(), param_dtype="float32",
+                              compute_dtype="float32")
+    if cfg.n_heads:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    models = [build_model(cfg, d).init(torch.Generator().manual_seed(0)) for d in ("cpu", cuda)]
+    batch = models[0].make_batch(torch.Generator().manual_seed(1),
+                                 ShapeConfig("s", 64, 2, "prefill"))["batch"]
+    routes, res = [], []
+    route = MOE.route
+
+    def spy(*args, **kwargs):
+        routes[-1].append(route(*args, **kwargs))
+        return routes[-1][-1]
+
+    MOE.route = spy
+    try:
+        for m in models:
+            routes.append([])
+            counts.reset()
+            res.append(serve_lm.serve(m, batch, 4))
+    finally:
+        MOE.route = route
+    k6 = sum(n * sum(mx == "attn" for mx, _ in sigs) for n, sigs in T.segments(cfg))
+    k6 += cfg.n_enc_layers if cfg.is_encdec else 0
+    assert counts.snapshot() == ({"flash_attention": k6} if k6 else {})
+    assert torch.equal(res[1].ids.cpu(), res[0].ids)
+    want = res[0].prefill_logits
+    assert float((res[1].prefill_logits.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    assert len(routes[1]) == len(routes[0]) == (bool(cfg.n_experts) * len(routes[0]))
+    for rc, r in zip(routes[1], routes[0]):
+        assert torch.equal(rc.top_idx.cpu(), r.top_idx) and torch.equal(rc.keep.cpu(), r.keep)

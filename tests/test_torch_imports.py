@@ -14,6 +14,7 @@ import torch.distributed as dist
 
 from repro_torch import api, interop
 from repro_torch.configs import ARCHS
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import interp as I
 from repro_torch.core import measures as M
 from repro_torch.core import registration as R
@@ -62,8 +63,8 @@ def test_import_scan_covers_the_lm_path():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("configs/base", "configs/registry", "configs/qwen1_5_0_5b",
                  "configs/smollm_135m", "models/layers", "models/attention",
-                 "models/transformer", "models/api", "launch/serve_lm",
-                 "kernels/flashattn"):
+                 "models/transformer", "models/api", "models/moe", "models/ssm",
+                 "launch/serve_lm", "kernels/flashattn"):
         assert f"src/repro_torch/{name}.py" in scanned
     assert (ROOT / "src/repro_torch/csrc/flashattn.cu").exists()
 
@@ -88,10 +89,14 @@ def test_import_scan_covers_checkpoint_and_serve():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b",
                                   "whisper-large-v3", "internvl2-1b"])
 def test_unported_lm_families_raise_not_implemented(arch):
+    """Every family serves; what is not ported for them, training (ROADMAP
+    A20), raises."""
     cfg = ARCHS[arch].smoke()
     assert cfg.family in ("moe", "ssm", "hybrid", "encdec", "vlm")
+    model = build_model(cfg, device="cpu")
+    assert model.input_specs(ShapeConfig("p", 32, 2, "prefill"))["batch"]["tokens"].shape[0] == 2
     with pytest.raises(NotImplementedError, match="A20"):
-        build_model(cfg, device="cpu")
+        model.input_specs(ShapeConfig("t", 32, 2, "train"))
 
 
 def test_serve_lm_on_cuda_without_card_raises(monkeypatch):

@@ -230,8 +230,8 @@ def test_lm_params_from_jax_refuses_mismatches():
         interop.lm_params_from_jax(p, dataclasses.replace(tm.cfg, vocab_size=300))
     with pytest.raises(ValueError, match="stacked layers"):
         interop.lm_params_from_jax(p, dataclasses.replace(tm.cfg, n_layers=3))
-    with pytest.raises(NotImplementedError, match="A20"):
-        interop.lm_params_from_jax(p, TARCHS["olmoe-1b-7b"].smoke())
+    with pytest.raises(ValueError, match="lack an encoder"):
+        interop.lm_params_from_jax(p, TARCHS["whisper-large-v3"].smoke())
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +324,7 @@ def test_serve_greedy_ids_match_jax_fp32(case):
     tok = _tokens((3, 12), 16)
     want = _jax_serve(jm, params, jnp.asarray(tok, jnp.int32), 6)
     counts.reset()
-    res = serve_lm.serve(tm, torch.from_numpy(tok), 6)
+    res = serve_lm.serve(tm, {"tokens": torch.from_numpy(tok)}, 6)
     assert counts.snapshot() == {"plain:flash_attention": tm.cfg.n_layers}
     assert res.ids.shape == (3, 7)
     np.testing.assert_array_equal(res.ids.numpy(), want)
