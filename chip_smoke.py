@@ -136,6 +136,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              1792 tokens) + 64, K6 24 times
                              The five draw their weights on the card; each
                              model is freed before the next.
+              train_parity   one fp32 train step (``repro_torch.train``) of each
+                             family's smoke config (TRAIN_PARITY) on the card and
+                             on the CPU from the same weights and batch: loss,
+                             grad norm and every gradient leaf; the card's new
+                             params and AdamW state against the CPU's
+                             ``adamw_update`` of the card's gradients; no kernel
+                             launched (K6 has no backward)
+              train:smollm-135m  ``repro_torch.launch.train``'s Trainer at the
+                             published width (TRAIN_ARGV): 6 steps of 8 x 2048
+                             tokens, each step's loss, grad norm, seconds and
+                             tokens/s, the peak memory above the script's own
+                             tensors, the step-6 loss below the step-1 loss;
+                             then a new trainer restored from the step-3
+                             checkpoint (bit-equal to the state saved) runs
+                             steps 4-6. Launch counts cover the whole run,
+                             backward recomputation included (none: the
+                             training path launches no kernel).
 18. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one (K6: SDPA); K4
@@ -150,10 +167,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               decode loop (idle share); deepseek-moe-16b's prefill and one
               decode step (measured right after its path), split into K6,
               the expert GEMMs, the dispatch/combine einsums, routing and
-              elementwise ops by ``moe:<stage>`` profiler ranges.
+              elementwise ops by ``moe:<stage>`` profiler ranges; one more
+              train:smollm-135m step, its forward and its AdamW update in
+              ``train:forward`` / ``train:adamw`` ranges.
 
-Then a ``script`` line (the script's wall time and the five non-dense LM
-paths' share of it), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
+Then a ``script`` line (the script's wall time, and the shares of the five
+non-dense LM paths and of the two training phases), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -168,6 +187,7 @@ import io
 import json
 import math
 import pathlib
+import shutil
 import socket
 import subprocess
 import sys
@@ -326,6 +346,27 @@ LM_PATHS = {
 REF_LM = {"qwen1.5-0.5b": (3, 100), "smollm-135m": (3, 100), "deepseek-moe-16b": (2, 64),
           "mamba2-780m": (2, 64), "jamba-v0.1-52b": (2, 64), "whisper-large-v3": (2, 64),
           "internvl2-1b": (2, 64)}
+#: train:smollm-135m: ``repro_torch.launch.train``'s arguments at the
+#: published width (30 layers, d 576, GQA 9/3, vocab 49 152, bf16 params with
+#: fp32 master, m and v): 8 x 2048 tokens a step from ``SyntheticTokens``, 6
+#: steps with the launcher's AdamWConfig(lr=3e-4, total_steps=6,
+#: warmup_steps=1), a checkpoint every 3 steps; then a new trainer restored
+#: from the step-3 checkpoint runs steps 4-6 on the same stream.
+TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "6", "--batch", "8", "--seq", "2048",
+              "--ckpt-every", "3", "--device", "cuda"]
+#: train_parity: family -> arch whose fp32 smoke config takes one train step
+#: on the card and on the CPU from the same weights and batch (2 x 64 tokens:
+#: B * S a multiple of the MoE's 128-token group).
+TRAIN_PARITY = {"dense": "smollm-135m", "moe": "deepseek-moe-16b", "ssm": "mamba2-780m",
+                "hybrid": "jamba-v0.1-52b", "encdec": "whisper-large-v3",
+                "vlm": "internvl2-1b"}
+TRAIN_LOSS_REL = 1e-5      # fp32 loss, card vs CPU (tests/test_torch_train_loss.py's rtol)
+TRAIN_GRAD_REL = 1e-4      # each gradient leaf and the grad norm, vs max|CPU leaf| / the norm
+#: the card's new params and AdamW state against the CPU's ``adamw_update``
+#: of the card's gradients: 1e-6 * |x| + 1e-6 * max|leaf| (tests/test_torch_adamw.py).
+#: Not against the CPU's own step: Adam's first move is sign(g) * lr, and a
+#: gradient element within the gradient tolerance of 0 may step either way.
+TRAIN_UPDATE_REL = 1e-6
 #: K4 operations per voxel besides the taps: floor, fraction and weights on
 #: three axes (the B-spline's ~22 per axis; 3 for linear).
 K4_WEIGHT_OPS = {"linear": 9, "cubic_bspline": 66, "cubic_lagrange": 60}
@@ -520,6 +561,76 @@ def routing_spy():
         yield calls
     finally:
         MOE.route = route
+
+
+@contextlib.contextmanager
+def grads_spy():
+    """Collect the gradients each train step hands to ``adamw_update``
+    inside the block (``repro_torch.train.steps``)."""
+    from repro_torch.train import steps as TS
+
+    seen, update = [], TS.adamw.adamw_update
+
+    def spy(cfg, grads, opt, params):
+        seen.append(grads)
+        return update(cfg, grads, opt, params)
+
+    TS.adamw.adamw_update = spy
+    try:
+        yield seen
+    finally:
+        TS.adamw.adamw_update = update
+
+
+@contextlib.contextmanager
+def train_ranges(model):
+    """Profiler ranges ``train:forward`` (``Model.loss``) and
+    ``train:adamw`` (the update) inside the block; the rest of a step's
+    device time is the backward, recomputation included."""
+    import torch
+    from repro_torch.train import steps as TS
+
+    update, loss = TS.adamw.adamw_update, model.loss
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    TS.adamw.adamw_update = ranged("train:adamw", update)
+    model.loss = ranged("train:forward", loss)
+    try:
+        yield
+    finally:
+        TS.adamw.adamw_update = update
+        del model.loss
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Two trees (``optim.adamw.leaves`` order) with bit-equal leaves."""
+    import torch
+    from repro_torch.optim import adamw as OPT
+
+    la, lb = OPT.leaves(a), OPT.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def update_dev(got, ref) -> float:
+    """max over leaves of max(|got - ref| / (|ref| + max|ref leaf|)): <= r
+    means within r * |x| + r * max|leaf| (0 where both leaves are 0)."""
+    from repro_torch.optim import adamw as OPT
+
+    worst = 0.0
+    for g, r in zip(OPT.leaves(got), OPT.leaves(ref)):
+        g, r = g.detach().cpu().float(), r.float()
+        scale = r.abs() + float(r.abs().max())
+        d = (g - r).abs()
+        worst = max(worst, float((d / scale.clamp(min=1e-30)).max()) if float(d.max()) else 0.0)
+    return worst
 
 
 @contextlib.contextmanager
@@ -763,7 +874,11 @@ def main(argv=None) -> int:
     from repro_torch.launch import register as CLI
     from repro_torch.launch import serve_lm
     from repro_torch.launch import serve_registration as SCLI
+    from repro_torch.launch import train as TL
     from repro_torch.models import build_model
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as TS
 
     dev = D.resolve("cuda")
     n = args.size
@@ -1499,6 +1614,128 @@ def main(argv=None) -> int:
         if path.init_on == "cuda":
             new_lm_s += time.perf_counter() - t_path
 
+    # train_parity: one fp32 train step of each family's smoke config on the
+    # card and on the CPU, from the same weights and batch
+    t_train = time.perf_counter()
+    ocfg = AdamWConfig(lr=3e-4, total_steps=6, warmup_steps=1)
+    parity = []
+    for family, arch in TRAIN_PARITY.items():
+        cfg = dataclasses.replace(ARCHS[arch].smoke(), param_dtype="float32",
+                                  compute_dtype="float32")
+        runs = []
+        for d in ("cpu", dev):
+            model = build_model(cfg, d)
+            state = TS.init_train_state(model, torch.Generator().manual_seed(args.seed), ocfg)
+            batch = next(TL.token_batches(model, 64, 2, seed=args.seed))
+            counts.reset()
+            with grads_spy() as seen:
+                new, met = TS.make_train_step(model, None, ocfg)(state, batch)
+            runs.append((state, new, met, seen[0], counts.snapshot()))
+        (s0, n0, m0, g0, _), (_, n1, m1, g1, launched) = runs
+        loss_dev = abs(float(m1["loss"]) - float(m0["loss"])) / abs(float(m0["loss"]))
+        gnorm_dev = abs(float(m1["grad_norm"]) - float(m0["grad_norm"])) / float(m0["grad_norm"])
+        grad_dev = max(max_err(a.cpu().float(), b.float()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(OPT.leaves(g1), OPT.leaves(g0)))
+        g1_cpu = OPT.unflatten(g1, [t.cpu() for t in OPT.leaves(g1)])
+        ref_p, ref_o, _ = OPT.adamw_update(ocfg, g1_cpu, s0.opt, s0.params)
+        upd_dev = max(update_dev(n1.params, ref_p),
+                      *(update_dev(n1.opt[k], ref_o[k]) for k in ("m", "v", "master")))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in OPT.leaves(n1.params))
+        ok = (loss_dev <= TRAIN_LOSS_REL and gnorm_dev <= TRAIN_GRAD_REL
+              and grad_dev <= TRAIN_GRAD_REL and upd_dev <= TRAIN_UPDATE_REL and finite
+              and not launched)
+        parity.append(dict(
+            family=family, arch=arch, ok=ok, dtype="float32", batch=[2, 64],
+            loss=[float(m0["loss"]), float(m1["loss"])], loss_rel_dev=loss_dev,
+            grad_norm=[float(m0["grad_norm"]), float(m1["grad_norm"])],
+            grad_norm_rel_dev=gnorm_dev, grad_leaf_rel_dev=grad_dev, update_dev=upd_dev,
+            params_dev_over_lr=max(max_err(a.cpu().float(), b.float()) for a, b in zip(
+                OPT.leaves(n1.params), OPT.leaves(n0.params))) / ocfg.lr,
+            launches_on_card=launched))
+        del runs, s0, n0, n1, g0, g1
+    ok = all(r["ok"] for r in parity)
+    emit("train_parity", ok=ok, runs=parity,
+         tol=dict(loss_rel=TRAIN_LOSS_REL, grad_rel=TRAIN_GRAD_REL,
+                  update_rel=TRAIN_UPDATE_REL))
+    if not ok:
+        return 1
+
+    # train:smollm-135m at published width through the launcher's Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_a, ckpt_b = pathlib.Path(tmp, "a"), pathlib.Path(tmp, "b")
+        trainer, batches = TL.make_trainer(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_a)])
+        cfg, tokens_per_step = trainer.model.cfg, 8 * 2048
+        saved, save = {}, trainer.ckpt.save
+
+        def save_spy(tree, step):
+            saved[step] = tree  # the state the trainer saved, kept on the card
+            save(tree, step)
+
+        trainer.ckpt.save = save_spy
+        state, fields = drive("train:smollm-135m", [], lambda: trainer.run(
+            batches, torch.Generator().manual_seed(args.seed)))
+        log = trainer.metrics_log
+        steps = [dict(step=m["step"], loss=m["loss"], grad_norm=m["grad_norm"], lr=m["lr"],
+                      step_s=m["step_time_s"], tokens_s=tokens_per_step / m["step_time_s"])
+                 for m in log]
+        steady = sorted(m["step_time_s"] for m in log[1:])
+        steady_s = steady[len(steady) // 2]
+        train_wall = fields.pop("wall_s")
+        ok = (len(log) == 6 and int(state.opt["step"]) == 6 and sorted(saved) == [3, 6]
+              and all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in log)
+              and log[-1]["loss"] < log[0]["loss"]
+              and not fields["plain_runs"] and "flash_attention" not in fields["launches"])
+        # the restart: a new trainer restored from the step-3 checkpoint
+        ckpt_b.mkdir()
+        shutil.copytree(ckpt_a / "step_00000003", ckpt_b / "step_00000003")
+        trainer_b, _ = TL.make_trainer(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_b)])
+        t0 = time.perf_counter()
+        trainer_b.init_or_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_equal = tree_bits_equal([trainer_b.state.params, trainer_b.state.opt],
+                                         [saved[3].params, saved[3].opt])
+        start_b = trainer_b.start_step
+        resumed = TL.token_batches(trainer_b.model, 2048, 8)
+        for _ in range(3):
+            next(resumed)
+        state_b = trainer_b.run(resumed)
+        log_b = trainer_b.metrics_log
+        restart_ok = (start_b == 3 and restored_equal and int(state_b.opt["step"]) == 6
+                      and [m["step"] for m in log_b] == [4, 5, 6]
+                      and all(math.isfinite(m["loss"]) for m in log_b))
+        emit("train:smollm-135m", ok=ok and restart_ok, arch="smollm-135m",
+             n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+             n_kv_heads=cfg.n_kv_heads, vocab_padded=cfg.vocab_padded,
+             param_dtype=cfg.param_dtype, argv=TRAIN_ARGV,
+             params=sum(t.numel() for t in OPT.leaves(state.params)),
+             tokens_per_step=tokens_per_step, steps=steps, steady_step_s=steady_s,
+             steady_tokens_s=tokens_per_step / steady_s, run_wall_s=train_wall,
+             peak_gb_less_script=(fields["max_memory_allocated"]
+                                  - fields["memory_allocated_before"]) / 1e9,
+             launches_note="counted over the whole run, recomputation in backward "
+                           "included; the train path launches no kernel (K6 has no "
+                           "backward: attention is the blockwise PyTorch version)",
+             restart=dict(ok=restart_ok, start_step=start_b, restored_equal=restored_equal,
+                          restore_s=restore_s, final_step=int(state_b.opt["step"]),
+                          losses=[m["loss"] for m in log_b],
+                          step6_loss_continuous=log[-1]["loss"],
+                          params_max_dev_vs_continuous=max(
+                              max_err(a.float(), b.float()) for a, b in zip(
+                                  OPT.leaves(state_b.params), OPT.leaves(state.params)))),
+             **fields)
+        if not (ok and restart_ok):
+            return 1
+        # one more step under the profiler, printed in phase profile
+        del saved, trainer_b, state_b
+        prof_batch = next(TL.token_batches(trainer.model, 2048, 8, seed=args.seed + 1))
+        with train_ranges(trainer.model):
+            train_profile = profile("train:smollm-135m step",
+                                    lambda: trainer.step_fn(state, prof_batch), steady_s)
+        del trainer, state, batches, prof_batch
+        torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t_train
+
     def path_count(key):
         return sum(snap.get(key, 0) for snap in path_launches.values())
 
@@ -1661,6 +1898,7 @@ def main(argv=None) -> int:
     del model, cache
     for fields in moe_profiles:
         emit("profile", **fields)
+    emit("profile", **train_profile)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -1672,7 +1910,8 @@ def main(argv=None) -> int:
             bound_by=row["bound"][1], library_ms=row["library_ms"]))
     total_s = time.perf_counter() - t_script
     emit("script", total_s=total_s, new_lm_paths_s=new_lm_s,
-         new_lm_paths_share=new_lm_s / total_s)
+         new_lm_paths_share=new_lm_s / total_s, train_paths_s=train_s,
+         train_paths_share=train_s / total_s)
     print(smi_line)
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

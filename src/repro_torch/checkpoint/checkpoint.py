@@ -8,9 +8,11 @@ the other wrote:
         manifest.json     {"step", "leaves": [{path, file, shape, dtype}]}
         <leaf-path>.npy   one array per leaf
 
-A tree is nested dicts, lists or tuples whose leaves are tensors, numpy
-arrays or scalars (None is an empty subtree). Leaf paths are JAX's: dict
-keys in sorted order and list / tuple indices, joined by ``.``. ``dtype`` is
+A tree is nested dicts, lists, tuples or NamedTuples whose leaves are
+tensors, numpy arrays or scalars (None is an empty subtree). Leaf paths are
+JAX's: dict keys in sorted order, list / tuple indices and a NamedTuple's
+fields as ``.<name>`` (so a train state's leaves are ``.params.<...>`` and
+``.opt.<...>``), joined by ``.``. ``dtype`` is
 the numpy name of the logical type; bf16 and fp8, which ``.npy`` cannot
 hold, are stored bit-cast to a same-width unsigned integer.
 
@@ -49,6 +51,10 @@ _BITCAST = {
 _BITCAST_OF = {tdt: name for name, (_, tdt) in _BITCAST.items()}
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     """``(leaf path, leaf)`` in JAX's flattening order."""
     if tree is None:
@@ -56,6 +62,10 @@ def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
+    elif _is_namedtuple(tree):
+        # JAX names a NamedTuple's field ".<name>" (its GetAttrKey)
+        for name, x in zip(tree._fields, tree):
+            yield from _leaves(x, path + (f".{name}",))
     elif isinstance(tree, (list, tuple)):
         for i, x in enumerate(tree):
             yield from _leaves(x, path + (str(i),))
@@ -69,6 +79,9 @@ def _map(fn: Callable[[str, Any], Any], tree, path: Tuple[str, ...] = ()):
         return None
     if isinstance(tree, dict):
         return {k: _map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_map(fn, x, path + (f".{name}",))
+                            for name, x in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, x, path + (str(i),)) for i, x in enumerate(tree))
     return fn(".".join(path), tree)

@@ -7,7 +7,8 @@ arrays (or anything ``numpy.asarray`` reads) and return the port's tensors
 and dataclasses, so a test can feed one package's state to the other.
 ``slab_split``/``slab_join`` cut a global array into the x1 slabs of the
 slab-parallel solve and join them back. ``lm_params_from_jax`` carries an LM's
-params pytree across as the state dict of ``repro_torch.models.Model``.
+params pytree across as the state dict of ``repro_torch.models.Model``, and
+``train_state_from_jax`` a JAX ``TrainState`` as the port's.
 """
 
 from __future__ import annotations
@@ -142,3 +143,29 @@ def lm_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
         return _weights_from_numpy(tree, "cpu")
 
     return api.state_dict_from_tree(tensors(params), cfg)
+
+
+def train_state_from_jax(state, cfg, device="cuda"):
+    """The port's ``repro_torch.train.steps.TrainState`` on ``device`` from a
+    JAX ``TrainState(params, opt)`` of ``cfg``'s model, leaves as numpy
+    arrays (bfloat16 ones typed by ``ml_dtypes``).
+
+    Both packages keep the params and the AdamW ``m``, ``v`` and ``master``
+    trees in the JAX layout (each segment's leaves stacked over its repeats),
+    so the leaves come across as they are; each of the four trees is checked
+    against ``cfg`` as ``lm_params_from_jax`` checks params. ``opt["step"]``
+    stays a 0-d int32 tensor."""
+    from .models import api
+    from .train.steps import TrainState
+
+    def tensors(tree):
+        if isinstance(tree, Mapping):
+            return {k: tensors(v) for k, v in tree.items()}
+        return _weights_from_numpy(tree, device)
+
+    params, opt = state
+    out = TrainState(tensors(params), {k: tensors(opt[k]) for k in ("m", "v", "master")})
+    for tree in (out.params, *out.opt.values()):
+        api.layers_from_tree(tree, cfg)
+    out.opt["step"] = tensor_from_numpy(np.asarray(opt["step"], dtype=np.int32), device)
+    return out

@@ -79,8 +79,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(BH, S, hd) MHA attention, fp32 or bf16, output in q's dtype. On the
     card K6 takes hd 64 or 128 and contiguous tensors of one dtype (bf16 ones
     16-byte aligned: the kernel copies 16-byte chunks); it raises on anything
-    else."""
+    else. K6 has no backward: where autograd records through q, k or v it
+    raises, on any device, rather than return a result without a gradient
+    (the training forward takes ``models.attention.blockwise_attention``)."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention (K6) has no backward; differentiate "
+                           "models.attention.blockwise_attention instead")
     if q.device.type == "cpu":
         counts.bump("plain:flash_attention")
         return flash_attention_plain(q, k, v, causal)

@@ -1,5 +1,5 @@
 """Model facade: one ``nn.Module`` per architecture config with init,
-prefill and decode entry points.
+loss, prefill and decode entry points.
 
 Port of ``repro.models.api`` for every family (dense, moe, ssm, hybrid,
 encdec, vlm). The JAX ``Model`` is stateless and takes its params pytree in
@@ -13,12 +13,17 @@ the weights with JAX's scales, and ``load_params(state)`` takes a state
 dict; :func:`state_dict_from_tree` makes one from a tree in the JAX layout
 (``interop.lm_params_from_jax``).
 
-Batch layouts (int64 tokens, bf16 float inputs), as in JAX:
+Training differentiates ``loss(batch, params)`` through a params tree in the
+JAX layout (each segment's leaves stacked over its repeats: the train
+state's, ``repro_torch.train``); the module's own parameters stay frozen.
+
+Batch layouts (int64 tokens, bf16 float inputs), as in JAX; a train batch
+adds ``targets`` of the tokens' shape (int32 or int64):
   LM family : {"tokens": (B,S)}
   encdec    : {"frames": (B,S,D), "tokens": (B,dec_len(S))}
   vlm       : {"patches": (B,P,D), "tokens": (B,S-P)}
 Decode: tokens (B,1) + cache + int position. Inference runs under
-``torch.inference_mode``; training is not ported (ROADMAP A20).
+``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ Params = Dict[str, Any]
 
 #: families with a port; any other raises.
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+MOE_AUX_COEFF = 0.01
 
 
 class TensorSpec(NamedTuple):
@@ -114,21 +121,33 @@ def _sinusoidal_at(position: int, d: int, dtype, device) -> torch.Tensor:
 
 def _unstack(seg: Mapping, n_rep: int, prefix: str) -> Dict[str, list]:
     """One segment's leaves stacked over ``n_rep`` repeats -> one tree per
-    repeat (``{"sub<j>": [per-repeat tree]}``)."""
+    repeat (``{"sub<j>": [per-repeat tree]}``), views of the stacked leaves
+    (``unbind``: one backward node per leaf, which stacks its gradient)."""
     for key, leaf in _flatten(seg, prefix).items():
         if leaf.shape[0] != n_rep:
             raise ValueError(f"{key}: {leaf.shape[0]} stacked layers, expected {n_rep}")
-    return {sub: [_tree_map(lambda t, r=r: t[r], sub_tree) for r in range(n_rep)]
-            for sub, sub_tree in seg.items()}
+    out = {}
+    for sub, sub_tree in seg.items():
+        parts = _tree_map(lambda t: t.unbind(0), sub_tree)
+        out[sub] = [_tree_map(lambda u, r=r: u[r], parts) for r in range(n_rep)]
+    return out
 
 
-def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """The state dict of ``Model(cfg)`` from a params tree of tensors in the
-    JAX layout, where each decoder (and encoder) segment's leaves are stacked
-    over its repeats (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep,
-    d_in, d_out)``); the model keeps one entry per layer
-    (``decoder.seg0.sub0.<r>.mixer.wq.w``). The SSM leaves ``A_log``, ``D``
-    and ``dt_bias`` are fp32 in any model, as in JAX."""
+def _stack(trees: list):
+    """Trees of one structure -> one tree of their leaves stacked."""
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack([t.detach() for t in trees])
+
+
+def layers_from_tree(tree: Mapping, cfg) -> Params:
+    """The port's per-layer params tree (``Model.params()``'s layout) of a
+    params tree of tensors in the JAX layout, where each decoder (and
+    encoder) segment's leaves are stacked over its repeats
+    (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep, d_in, d_out)``);
+    the layers are views of the stacked leaves, so a gradient reaches them.
+    The SSM leaves ``A_log``, ``D`` and ``dt_bias`` are fp32 in any model,
+    as in JAX."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     if ("unembed" in tree) == bool(cfg.tie_embeddings):
@@ -148,7 +167,27 @@ def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     if cfg.is_encdec:
         out["encoder"] = {"seg0": _unstack(tree["encoder"]["seg0"], cfg.n_enc_layers,
                                            "encoder.seg0.")}
-    return _flatten(out)
+    return out
+
+
+def state_dict_from_tree(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The state dict of ``Model(cfg)`` from a params tree in the JAX layout
+    (:func:`layers_from_tree`); the model keeps one entry per layer
+    (``decoder.seg0.sub0.<r>.mixer.wq.w``)."""
+    return _flatten(layers_from_tree(tree, cfg))
+
+
+def tree_from_layers(p: Params) -> Params:
+    """The params tree in the JAX layout from the port's per-layer tree
+    (``Model.params()``): each segment's layers stacked over its repeats,
+    every leaf a new tensor (the inverse of :func:`layers_from_tree`)."""
+    out = {k: _tree_map(lambda t: t.detach().clone(), v) for k, v in p.items()
+           if k not in ("decoder", "encoder")}
+    for k in ("decoder", "encoder"):
+        if k in p:
+            out[k] = {seg: {sub: _stack(layers) for sub, layers in subs.items()}
+                      for seg, subs in p[k].items()}
+    return out
 
 
 class Model(nn.Module):
@@ -223,7 +262,8 @@ class Model(nn.Module):
         x = frames.to(device=self.dev, dtype=cd)
         x = x + _sinusoidal(x.shape[1], cfg.d_model, cd, self.dev)[None]
         for layer in p["encoder"]["seg0"]["sub0"]:
-            x, _ = T.sublayer_apply(layer, cfg, ("attn", "dense"), x, cd, causal=False)
+            x = L.remat(lambda h, layer=layer: T.sublayer_apply(
+                layer, cfg, ("attn", "dense"), h, cd, causal=False)[0], x)
         return L.norm_apply(p["enc_norm"], x, cfg.norm_eps, cd)
 
     def _embed_inputs(self, p: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -242,8 +282,28 @@ class Model(nn.Module):
         return L.unembed(table, x, self.compute_dtype)
 
     # ------------------------------------------------------------------
-    # public: prefill / decode
+    # public: loss / prefill / decode
     # ------------------------------------------------------------------
+
+    def loss(self, batch: Mapping[str, torch.Tensor], params: Optional[Params] = None):
+        """(total, {"xent": ..., "aux": ...}) of a train batch: the mean fp32
+        cross entropy of ``targets`` (over the text positions for vlm; the
+        encoder runs first for encdec) plus ``MOE_AUX_COEFF`` x the summed
+        MoE load-balance losses. ``params`` is a params tree in the JAX
+        layout (the train state's), whose leaves autograd differentiates;
+        by default the model's own (frozen) weights. Self-attention takes the
+        blockwise path where autograd records, K6 elsewhere."""
+        cfg, cd = self.cfg, self.compute_dtype
+        p = self.params() if params is None else layers_from_tree(params, cfg)
+        enc = self._encode(p, batch["frames"]) if cfg.is_encdec else None
+        x = self._embed_inputs(p, batch)
+        x, aux = T.stack_apply(p["decoder"], cfg, x, cd, causal=True, enc_states=enc)
+        if cfg.family == "vlm":  # loss over the text positions only
+            x = x[:, batch["patches"].shape[1]:]
+        logits = self._logits(p, x)
+        xent = L.softmax_xent(logits, batch["targets"].to(self.dev), cfg.vocab_size)
+        total = xent + MOE_AUX_COEFF * aux
+        return total, {"xent": xent, "aux": aux}
 
     @torch.inference_mode()
     def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -296,12 +356,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def input_specs(self, shape_cfg) -> Dict:
-        """Shape and dtype of every model input of one prefill or decode
-        cell, as :class:`TensorSpec` leaves."""
+        """Shape and dtype of every model input of one train, prefill or
+        decode cell, as :class:`TensorSpec` leaves; a train batch has
+        ``targets`` of the tokens' shape."""
         cfg = self.cfg
         b, s = shape_cfg.global_batch, shape_cfg.seq_len
         i64, bf16 = torch.int64, torch.bfloat16
-        if shape_cfg.kind == "prefill":
+        if shape_cfg.kind in ("train", "prefill"):
             if cfg.is_encdec:
                 batch = {"frames": TensorSpec((b, s, cfg.d_model), bf16),
                          "tokens": TensorSpec((b, self.dec_len(s)), i64)}
@@ -310,10 +371,12 @@ class Model(nn.Module):
                          "tokens": TensorSpec((b, self.text_len(s)), i64)}
             else:
                 batch = {"tokens": TensorSpec((b, s), i64)}
+            if shape_cfg.kind == "train":
+                batch["targets"] = batch["tokens"]
             return {"batch": batch}
         if shape_cfg.kind != "decode":
-            raise NotImplementedError(f"{shape_cfg.kind!r} cells: training is not ported "
-                                      "yet (ROADMAP A20)")
+            raise ValueError(f"cell kind {shape_cfg.kind!r}: expected train, prefill or "
+                             "decode")
         cache = _tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
                           self._cache(b, s, torch.device("meta")))
         return {"cache": cache, "tokens": TensorSpec((b, 1), i64),

@@ -1,5 +1,6 @@
 """GQA attention: the self-attention prefill path through the
-flash-attention kernel (K6), the KV-cache decode path, and cross-attention
+flash-attention kernel (K6), the differentiable blockwise self-attention of
+the training forward, the KV-cache decode path, and cross-attention
 (encoder-decoder).
 
 Port of ``repro.models.attention``.
@@ -14,8 +15,12 @@ The self-attention prefill folds the heads into the leading dimension and
 calls ``kernels.flashattn.flash_attention``, whose contract is the TPU
 kernel's: MHA on (BH, S, hd) with K/V as long as q. For G > 1 the K/V heads
 are repeated G times first (a plain copy); folding the group into the
-kernel's indexing is later work. Cross-attention (K/V of another length) and
-the decode paths are plain PyTorch, as JAX computes them outside any kernel.
+kernel's indexing is later work. K6 has no backward: where autograd records
+(a loss whose params require grad), self-attention takes
+:func:`blockwise_attention` instead, JAX's ``multihead_attention`` (online
+softmax over KV chunks, each chunk step recomputed in backward). Cross-
+attention (K/V of another length) and the decode paths are plain PyTorch, as
+JAX computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +34,25 @@ from ..kernels import flashattn as FA
 from . import layers as L
 
 Params = Dict[str, Any]
+
+_DEFAULT_BLOCKS = {"q_block": 512, "kv_chunk": 512, "score_dtype": None}
+#: Blockwise-attention knobs of the training forward (q block, kv chunk,
+#: score dtype: None is fp32), as JAX's ``_BLOCK_CONFIG``. The online-softmax
+#: carries m / l / acc stay fp32 whatever the score dtype.
+_BLOCK_CONFIG = dict(_DEFAULT_BLOCKS)
+
+
+def set_block_config(q_block=None, kv_chunk=None, score_dtype="keep"):
+    if q_block is not None:
+        _BLOCK_CONFIG["q_block"] = q_block
+    if kv_chunk is not None:
+        _BLOCK_CONFIG["kv_chunk"] = kv_chunk
+    if score_dtype != "keep":
+        _BLOCK_CONFIG["score_dtype"] = score_dtype
+
+
+def reset_block_config():
+    _BLOCK_CONFIG.update(_DEFAULT_BLOCKS)
 
 
 def make_attention(gen, cfg, dtype, device, cross: bool = False) -> Params:
@@ -93,12 +117,88 @@ def multihead_attention(q, k, v, causal: bool):
 
 
 def self_attention(p, cfg, x, compute_dtype, causal: bool = True):
+    """K6 (``multihead_attention``), or :func:`blockwise_attention` where
+    autograd records through q, k or v."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, x, positions, positions, compute_dtype)
-    out = multihead_attention(q, k, v, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # JAX's self_attention passes 512 / 512, whatever set_block_config says
+        out = blockwise_attention(q, k, v, causal, q_block=512, kv_chunk=512)
+    else:
+        out = multihead_attention(q, k, v, causal)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(compute_dtype)
     return L.dense(p["wo"], out, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise self-attention (training forward): plain PyTorch, differentiable
+# ---------------------------------------------------------------------------
+
+
+def _chunk_step(m, l, acc, q_blk, k_c, v_c, q_pos, kv_pos, causal: bool, scale: float, sd):
+    """One KV chunk of the online softmax: (m, l, acc) -> (m, l, acc), the
+    scores in ``sd``."""
+    neg = -1e30 if sd == torch.float32 else -3e38
+    s = torch.einsum("bqkgd,bckd->bkgqc", q_blk.to(sd), k_c.to(sd)) * scale
+    if causal:
+        s = s.masked_fill(q_pos[:, None] < kv_pos[None, :], neg)
+    m_new = torch.maximum(m, s.amax(dim=-1).float())
+    p = torch.exp(s - m_new[..., None].to(sd))
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1).float()
+    pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v_c.dtype), v_c)
+    return m_new, l_new, acc * corr[..., None] + pv.float()
+
+
+def _block_attend(q_blk, k, v, q_start: int, kc: int, n_ch: int, causal: bool, scale: float,
+                  sd):
+    """Online-softmax attention of one query block over the first ``n_ch``
+    KV chunks of length ``kc``; each chunk step is recomputed in backward
+    (JAX's ``@jax.checkpoint``), so no (q_block x kc) probability block is
+    kept for it. -> (b, bq, n_kv, g, hd) fp32."""
+    b, bq, n_kv, g, hd = q_blk.shape
+    dev = q_blk.device
+    q_pos = q_start + torch.arange(bq, device=dev)
+    m = torch.full((b, n_kv, g, bq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, n_kv, g, bq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, n_kv, g, bq, hd), dtype=torch.float32, device=dev)
+    for c in range(n_ch):
+        kv_pos = c * kc + torch.arange(kc, device=dev)
+        m, l, acc = L.remat(_chunk_step, m, l, acc, q_blk, k[:, c * kc:(c + 1) * kc],
+                            v[:, c * kc:(c + 1) * kc], q_pos, kv_pos, causal, scale, sd)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def blockwise_attention(q, k, v, causal: bool, q_block: int | None = None,
+                        kv_chunk: int | None = None):
+    """q: (B,S,KV,G,hd); k, v: (B,S_kv,KV,hd) -> (B,S,KV,G,hd) fp32.
+
+    JAX's ``multihead_attention``: query blocks of ``q_block`` (one block
+    when it does not divide S), KV chunks of the largest length up to
+    ``kv_chunk`` that tiles both the KV and the query block; a causal query
+    block only visits the KV prefix it can see."""
+    q_block = q_block or _BLOCK_CONFIG["q_block"]
+    kv_chunk = kv_chunk or _BLOCK_CONFIG["kv_chunk"]
+    sd = _BLOCK_CONFIG["score_dtype"] or torch.float32
+    s, hd = q.shape[1], q.shape[-1]
+    s_kv = k.shape[1]
+    # the scale as the score dtype holds it, as JAX casts it
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=sd))
+    qb = min(q_block, s)
+    if s % qb:
+        qb = s
+    n_q = s // qb
+    kc = min(kv_chunk, qb, s_kv)
+    while s_kv % kc or qb % kc:
+        kc -= 1
+    outs = []
+    for i in range(n_q):
+        hi = min((i + 1) * qb, s_kv) if causal else s_kv
+        outs.append(_block_attend(q[:, i * qb:(i + 1) * qb], k, v, i * qb, kc,
+                                  max(hi // kc, 1), causal, scale, sd))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -27,6 +28,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def remat(fn, *args):
+    """``fn(*args)``; where autograd records, recomputed in backward instead
+    of keeping its intermediates (JAX's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _normal(gen: Optional[torch.Generator], shape, dtype, scale: float,
@@ -150,3 +159,21 @@ def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def unembed(table: torch.Tensor, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x.to(compute_dtype) @ table.to(compute_dtype).t()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 vocab_real: int) -> torch.Tensor:
+    """Mean cross entropy in fp32; the padded vocab tail gets -1e9 added."""
+    logits = logits.float()
+    if vocab_real < logits.shape[-1]:
+        mask = torch.zeros((logits.shape[-1],), dtype=torch.float32, device=logits.device)
+        mask[vocab_real:] = -1e9
+        logits = logits + mask
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
+    return torch.mean(logz - gold)

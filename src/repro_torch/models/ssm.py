@@ -7,7 +7,9 @@ depthwise conv precedes the SSM. The sequence is cut into chunks of
 ``cfg.ssm_chunk`` (the whole sequence when that does not divide it): within
 a chunk an attention-like (L x L lower-triangular decay) product, across
 chunks a state recurrence, here a Python loop over the chunks (JAX's
-``lax.scan``; no remat, inference only). The scan runs in fp32; ``A_log``,
+``lax.scan``). Where autograd records, each chunk step is recomputed in
+backward, as JAX's ``jax.checkpoint`` of it: only the (b, h, p, n) state
+carries are kept, not the (b, h, L, L) decay blocks. The scan runs in fp32; ``A_log``,
 ``D`` and ``dt_bias`` are fp32 parameters whatever the model's dtype.
 
 Decode keeps {"conv": (B, d_conv, di + 2N), "state": (B, H, P, N)} per
@@ -73,8 +75,25 @@ def _segsum(a):
     return out.masked_fill(~mask, float("-inf"))
 
 
+def _chunk_step(state, x_k, b_k, c_k, a_k):
+    """One chunk: x_k (b,L,h,p), b_k / c_k (b,L,n), a_k (b,h,L), all fp32,
+    and the incoming state (b,h,p,n) -> (new state, y (b,L,h,p) fp32)."""
+    a_cum = torch.cumsum(a_k, dim=-1)
+    # intra-chunk (diagonal block)
+    ldec = torch.exp(_segsum(a_k))                                # (b,h,L,L)
+    cb = c_k @ b_k.transpose(1, 2)                                # (b,L,L)
+    y_diag = torch.einsum("bhlm,bmhp->blhp", cb[:, None] * ldec, x_k)
+    # contribution of the incoming state
+    y_off = torch.einsum("bln,bhpn,bhl->blhp", c_k, state, torch.exp(a_cum))
+    # state update
+    decay_in = torch.exp(a_cum[..., -1:] - a_cum)                 # (b,h,L)
+    new_state = state * torch.exp(a_cum[..., -1])[..., None, None] + torch.einsum(
+        "bln,bhl,blhp->bhpn", b_k, decay_in, x_k)
+    return new_state, y_diag + y_off
+
+
 def ssm_block(p: Params, cfg, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Prefill path. x: (B, S, D) -> (B, S, D)."""
+    """Prefill and training path. x: (B, S, D) -> (B, S, D)."""
     b, s, _ = x.shape
     di, n, nh, ph = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_n_heads, cfg.ssm_head_dim
     chunk = min(cfg.ssm_chunk, s)
@@ -94,22 +113,10 @@ def ssm_block(p: Params, cfg, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     state = torch.zeros((b, nh, ph, n), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, s, chunk):
-        x_k = x_eff[:, c0:c0 + chunk].float()                     # (b,L,h,p)
-        b_k = bmat[:, c0:c0 + chunk].float()                      # (b,L,n)
-        c_k = cmat[:, c0:c0 + chunk].float()                      # (b,L,n)
-        a_k = a_eff[:, c0:c0 + chunk].transpose(1, 2)             # (b,h,L)
-        a_cum = torch.cumsum(a_k, dim=-1)
-        # intra-chunk (diagonal block)
-        ldec = torch.exp(_segsum(a_k))                            # (b,h,L,L)
-        cb = c_k @ b_k.transpose(1, 2)                            # (b,L,L)
-        y_diag = torch.einsum("bhlm,bmhp->blhp", cb[:, None] * ldec, x_k)
-        # contribution of the incoming state
-        y_off = torch.einsum("bln,bhpn,bhl->blhp", c_k, state, torch.exp(a_cum))
-        # state update
-        decay_in = torch.exp(a_cum[..., -1:] - a_cum)             # (b,h,L)
-        state = state * torch.exp(a_cum[..., -1])[..., None, None] + torch.einsum(
-            "bln,bhl,blhp->bhpn", b_k, decay_in, x_k)
-        ys.append((y_diag + y_off).to(compute_dtype))
+        state, y = L.remat(_chunk_step, state, x_eff[:, c0:c0 + chunk].float(),
+                           bmat[:, c0:c0 + chunk].float(), cmat[:, c0:c0 + chunk].float(),
+                           a_eff[:, c0:c0 + chunk].transpose(1, 2))
+        ys.append(y.to(compute_dtype))
     y = torch.cat(ys, dim=1)
     y = y + p["D"][None, None, :, None].to(compute_dtype) * xs
     y = y.reshape(b, s, di)

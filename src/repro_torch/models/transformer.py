@@ -7,7 +7,9 @@ segment body may hold several different sub-layers (the hybrid's one
 periodic segment, Jamba's 8-layer period). JAX stacks a segment's params on
 a leading axis and scans over them; here a segment holds a list over its
 repeats, ``p["seg<i>"]["sub<j>"][r]``, the layout of JAX's decode cache, and
-the stack is a Python loop (no remat: inference only).
+the stack is a Python loop. Where autograd records, each repeat of a segment
+body is recomputed in backward, and so is each MoE block inside it (JAX's
+``remat=True`` and its ``jax.checkpoint`` of the MoE block).
 
 Layer signature: (mixer, mlp) with mixer in {"attn", "ssm"} and mlp in
 {"dense", "moe", "none"}.
@@ -103,7 +105,9 @@ def sublayer_apply(p: Params, cfg, sig: Sig, x, compute_dtype, causal=True,
     if mlp_kind != "none":
         h = L.norm_apply(p["norm2"], x, cfg.norm_eps, compute_dtype)
         if mlp_kind == "moe":
-            h, aux = M.moe_block(p["mlp"], cfg, h, compute_dtype)
+            # recompute the dispatch/combine one-hots in backward instead of
+            # saving them (they dominate MoE activation memory)
+            h, aux = L.remat(lambda hh: M.moe_block(p["mlp"], cfg, hh, compute_dtype), h)
         else:
             h = L.mlp(p["mlp"], h, cfg.act, compute_dtype)
         x = x + h
@@ -128,15 +132,22 @@ def make_stack(gen, cfg, dtype, device, cross: bool = False) -> Params:
 
 def stack_apply(p: Params, cfg, x, compute_dtype, causal=True, enc_states=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run every layer in order; returns (x, the sum of the MoE aux losses)."""
+    """Run every layer in order; returns (x, the sum of the MoE aux losses).
+    Where autograd records, each repeat of a segment body is recomputed in
+    backward."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
         seg = p[f"seg{si}"]
         for r in range(n_rep):
-            for j, sig in enumerate(sigs):
-                x, a = sublayer_apply(seg[f"sub{j}"][r], cfg, sig, x, compute_dtype,
-                                      causal=causal, enc_states=enc_states)
-                aux_total = aux_total + a
+            # the loop's variables bound now: backward recomputes after the loop
+            def body(h, aux, seg=seg, sigs=sigs, r=r):
+                for j, sig in enumerate(sigs):
+                    h, a = sublayer_apply(seg[f"sub{j}"][r], cfg, sig, h, compute_dtype,
+                                          causal=causal, enc_states=enc_states)
+                    aux = aux + a
+                return h, aux
+
+            x, aux_total = L.remat(body, x, aux_total)
     return x, aux_total
 
 

@@ -159,3 +159,78 @@ def decode_steps(jm, params, tm, toks, cache_len, start=0):
                         jnp.asarray(start + i, jnp.int32))
         lt, ct = tm.decode_step(ct, torch.from_numpy(toks[:, i:i + 1]), start + i)
         yield i, lj, lt, cj, ct
+
+
+# ---------------------------------------------------------------------------
+# training: loss and gradients (test_torch_train_*.py)
+# ---------------------------------------------------------------------------
+
+#: fp32 loss and xent rtol, aux rtol; each gradient leaf within GRAD_REL *
+#: max|JAX leaf| (fp32 sums in another order; measured <= 3.7e-5, jamba's)
+LOSS_RTOL = 1e-5
+GRAD_REL = 1e-4
+#: bf16 loss against JAX run op by op
+BF16_LOSS_ATOL = 0.02
+_VG = {}
+
+
+def train_batch(jm, b, s, seed, vocab=256):
+    """A numpy train batch of ``jm``'s layout for sequence length ``s``:
+    tokens and targets (decoder length for encdec, text length for vlm),
+    with N(0, 1) frames or patches."""
+    cfg = jm.cfg
+    rng = np.random.default_rng(seed)
+    out = {}
+    n = s
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        n = jm.dec_len(s)
+    elif cfg.family == "vlm":
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(
+            np.float32)
+        n = s - cfg.n_patches
+    out["tokens"] = rng.integers(0, vocab, (b, n))
+    out["targets"] = rng.integers(0, vocab, (b, n))
+    return out
+
+
+def jax_value_and_grad(jm):
+    """``value_and_grad(jm.loss, has_aux=True)``, jitted for fp32 models
+    (once per model), op by op for bf16 ones."""
+    if id(jm) not in _VG:
+        fn = jax.value_and_grad(jm.loss, has_aux=True)
+        _VG[id(jm)] = (jm, jax.jit(fn) if jm.cfg.compute_dtype == "float32" else fn)
+    return _VG[id(jm)][1]
+
+
+def grad_tree(params):
+    """The JAX params as port tensors in the JAX layout, requiring grad."""
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a.astype(jnp.float32)))
+                        .to(torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+                        .requires_grad_(True), params)
+
+
+def port_loss_and_grads(tm, params, batch):
+    """(loss, metrics, grads in jax.tree.leaves order) of the port's
+    ``Model.loss`` on the JAX params."""
+    tree = grad_tree(params)
+    loss, metrics = tm.loss(batch, tree)
+    loss.backward()
+    return loss, metrics, [t.grad for t in jax.tree.leaves(tree)]
+
+
+def assert_loss_close(tl, tmet, jl, jmet):
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=LOSS_RTOL)
+    for k in ("xent", "aux"):
+        np.testing.assert_allclose(float(tmet[k].detach()), float(jmet[k]), rtol=LOSS_RTOL)
+
+
+def assert_grads_close(tgrads, jgrads, rel=GRAD_REL):
+    """Every leaf of equal shape and within ``rel`` * max|JAX leaf|."""
+    paths = jax.tree_util.tree_leaves_with_path(jgrads)
+    assert len(paths) == len(tgrads)
+    for (path, w), g in zip(paths, tgrads):
+        assert g is not None, path
+        w = to_np(w)
+        assert tuple(g.shape) == w.shape, path
+        assert np.abs(to_np(g) - w).max() <= rel * np.abs(w).max(), path

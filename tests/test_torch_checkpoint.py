@@ -209,3 +209,26 @@ def test_port_checkpoint_read_by_jax(tmp_path):
     assert jck.latest_step(str(tmp_path / "port")) == 9
     jck.save_checkpoint(str(tmp_path / "jax"), jtree, step=9)
     assert _manifest(tmp_path / "jax", 9) == _manifest(tmp_path / "port", 9)
+
+
+def test_namedtuple_train_state_round_trips_with_jax_paths(tmp_path):
+    """A ``TrainState(params, opt)`` (a NamedTuple) saves under JAX's leaf
+    paths (``.params.<...>``, ``.opt.<...>``), restores as a ``TrainState``
+    bit for bit, and JAX's manifest of the same state is identical."""
+    from repro.train.steps import TrainState as JTrainState
+    from repro_torch.train.steps import TrainState
+
+    jtree = _jax_tree()
+    jstate = JTrainState({"w": jtree["v"], "inner": jtree["meta"]["inner"]},
+                         {"m": [jtree["v"]], "step": jnp.asarray(5, jnp.int32)})
+    state = TrainState(*(_torch_like(part) for part in jstate))
+    save_checkpoint(str(tmp_path / "port"), state, step=5)
+    out = restore_checkpoint(str(tmp_path / "port"), jax.tree.map(torch.zeros_like, state))
+    assert isinstance(out, TrainState) and isinstance(out.opt["m"], list)
+    assert _flat_bits_torch(out.params) == _flat_bits_torch(state.params)
+    assert bytes(_bits(out.opt["m"][0])) == bytes(_bits(state.opt["m"][0]))
+    assert int(out.opt["step"]) == 5 and out.opt["step"].dtype == torch.int32
+    jck.save_checkpoint(str(tmp_path / "jax"), jstate, step=5)
+    assert _manifest(tmp_path / "port", 5) == _manifest(tmp_path / "jax", 5)
+    assert {leaf["path"] for leaf in _manifest(tmp_path / "port", 5)[1]} == {
+        ".params.w", ".params.inner.w16", ".opt.m.0", ".opt.step"}

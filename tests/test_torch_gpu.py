@@ -572,3 +572,45 @@ def test_smoke_family_serve_on_card_matches_cpu(cuda, arch):
     assert len(routes[1]) == len(routes[0]) == (bool(cfg.n_experts) * len(routes[0]))
     for rc, r in zip(routes[1], routes[0]):
         assert torch.equal(rc.top_idx.cpu(), r.top_idx) and torch.equal(rc.keep.cpu(), r.keep)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "whisper-large-v3", "internvl2-1b"])
+def test_smoke_family_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """One fp32 train step of each family's smoke config on the card and on
+    the CPU, from the same seeded weights and batch (chip_smoke.py's
+    train_parity): loss rtol 1e-5; the grad norm and every gradient leaf
+    within 1e-4 (of the norm, of max|CPU leaf|); the card's new params and
+    AdamW state within 1e-6 * |x| + 1e-6 * max|leaf| of the CPU's
+    ``adamw_update`` of the card's gradients (not of the CPU's own step:
+    Adam's first move is sign(g) * lr, and a gradient element within the
+    gradient tolerance of 0 may step either way); no kernel launched."""
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train import steps as TS
+
+    cfg = dataclasses.replace(ARCHS[arch].smoke(), param_dtype="float32",
+                              compute_dtype="float32")
+    ocfg = OPT.AdamWConfig(lr=3e-4, total_steps=6, warmup_steps=1)
+    seen = []
+    update = TS.adamw.adamw_update
+    monkeypatch.setattr(TS.adamw, "adamw_update",
+                        lambda c, g, o, p: seen.append(g) or update(c, g, o, p))
+    runs = []
+    for d in ("cpu", cuda):
+        model = build_model(cfg, d)
+        state = TS.init_train_state(model, torch.Generator().manual_seed(0), ocfg)
+        batch = next(TL.token_batches(model, 64, 2, seed=0))
+        counts.reset()
+        runs.append((state,) + TS.make_train_step(model, None, ocfg)(state, batch))
+    assert counts.snapshot() == {}
+    (s0, _, m0), (_, n1, m1) = runs
+    assert abs(float(m1["loss"]) - float(m0["loss"])) <= 1e-5 * abs(float(m0["loss"]))
+    assert abs(float(m1["grad_norm"]) - float(m0["grad_norm"])) <= 1e-4 * float(m0["grad_norm"])
+    g0, g1 = OPT.leaves(seen[0]), [t.cpu() for t in OPT.leaves(seen[1])]
+    for a, b in zip(g1, g0):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-4 * float(b.abs().max())
+    ref_p, ref_o, _ = OPT.adamw_update(ocfg, OPT.unflatten(seen[0], g1), s0.opt, s0.params)
+    for got, ref in [(n1.params, ref_p)] + [(n1.opt[k], ref_o[k]) for k in ("m", "v", "master")]:
+        for g, r in zip(OPT.leaves(got), OPT.leaves(ref)):
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-6, atol=1e-6 * float(r.abs().max()))

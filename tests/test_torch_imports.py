@@ -78,6 +78,13 @@ def test_import_scan_covers_the_facade_batch_and_measures():
         assert f"src/repro_torch/{name}.py" in scanned
 
 
+def test_import_scan_covers_training():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("data/tokens", "optim/__init__", "optim/adamw", "train/__init__",
+                 "train/steps", "train/trainer", "launch/train"):
+        assert f"src/repro_torch/{name}.py" in scanned
+
+
 def test_import_scan_covers_checkpoint_and_serve():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("checkpoint/__init__", "checkpoint/checkpoint", "serve/__init__",
@@ -89,14 +96,20 @@ def test_import_scan_covers_checkpoint_and_serve():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b",
                                   "whisper-large-v3", "internvl2-1b"])
 def test_unported_lm_families_raise_not_implemented(arch):
-    """Every family serves; what is not ported for them, training (ROADMAP
-    A20), raises."""
+    """Every family takes train cells: the prefill batch plus ``targets`` of
+    the tokens' shape (the decoder's for encdec, the text's for vlm); a cell
+    of another kind raises."""
     cfg = ARCHS[arch].smoke()
     assert cfg.family in ("moe", "ssm", "hybrid", "encdec", "vlm")
     model = build_model(cfg, device="cpu")
-    assert model.input_specs(ShapeConfig("p", 32, 2, "prefill"))["batch"]["tokens"].shape[0] == 2
-    with pytest.raises(NotImplementedError, match="A20"):
-        model.input_specs(ShapeConfig("t", 32, 2, "train"))
+    pre = model.input_specs(ShapeConfig("p", 32, 2, "prefill"))["batch"]
+    train = model.input_specs(ShapeConfig("t", 32, 2, "train"))["batch"]
+    assert set(train) == set(pre) | {"targets"}
+    assert train["targets"] == train["tokens"] == pre["tokens"]
+    assert train["targets"].shape == (2, model.dec_len(32) if cfg.is_encdec
+                                      else model.text_len(32))
+    with pytest.raises(ValueError, match="cell kind"):
+        model.input_specs(ShapeConfig("x", 32, 2, "serve"))
 
 
 def test_serve_lm_on_cuda_without_card_raises(monkeypatch):

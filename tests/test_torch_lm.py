@@ -337,8 +337,9 @@ def test_input_specs_and_batches():
     pre = tm.make_batch(gen, ShapeConfig("p", 10, 3, "prefill"))["batch"]
     assert set(pre) == {"tokens"} and pre["tokens"].shape == (3, 10)
     assert int(pre["tokens"].max()) < tm.cfg.vocab_size and pre["tokens"].dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="A20"):
-        tm.input_specs(ShapeConfig("t", 10, 3, "train"))
+    train = tm.make_batch(gen, ShapeConfig("t", 10, 3, "train"))["batch"]
+    assert set(train) == {"tokens", "targets"} and train["targets"].shape == (3, 10)
+    assert train["targets"].dtype == torch.int64 and int(train["targets"].max()) < 256
     dec = tm.input_specs(ShapeConfig("d", 32, 2, "decode"))
     k = dec["cache"]["seg0"]["sub0"][1]["k"]
     assert k.shape == (2, 32, tm.cfg.n_kv_heads, tm.cfg.head_dim) and k.dtype == torch.bfloat16
