@@ -152,7 +152,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              checkpoint (bit-equal to the state saved) runs
                              steps 4-6. Launch counts cover the whole run,
                              backward recomputation included (none: the
-                             training path launches no kernel).
+                             training path launches no kernel). Each step's
+                             model-FLOPs share ``mfu``: 6 N D / (step s x
+                             989 TFLOP/s, ``repro_torch.roofline``).
+              train_sharded:smollm-135m  the same Trainer with ``--mesh-shape
+                             1,1`` on a one-rank NCCL (data, model) mesh that
+                             the script opens and closes (the sharded step:
+                             ZeRO-1 blocks, gathers, data-axis means), steps
+                             1-3 of the same schedule and batches: loss and
+                             grad norm within TRAIN_LOSS_REL / TRAIN_GRAD_REL
+                             of train:smollm-135m's, params within
+                             TRAIN_GRAD_REL * max|leaf| of its step-3 state
+                             (bit-equality reported); then a mesh Trainer
+                             restores that run's step-3 checkpoint, bit-equal.
+              compression    ``compressed_psum_pod`` on that NCCL group over
+                             bf16 gradients of smollm's largest shapes:
+                             bit-equal to its plain version (one rank's
+                             payload dequantised; a self-consistency check,
+                             since one rank puts no byte on the wire), within
+                             2e-2 * max|g| of the exact mean. The
+                             collective's parity over several ranks is held
+                             by tests/test_torch_compression.py (4 gloo ranks
+                             against JAX) and test_torch_gpu.py (one NCCL
+                             rank a card).
 18. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one (K6: SDPA); K4
@@ -172,7 +194,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ``train:forward`` / ``train:adamw`` ranges.
 
 Then a ``script`` line (the script's wall time, and the shares of the five
-non-dense LM paths and of the two training phases), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
+non-dense LM paths and of the training phases), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -198,11 +220,12 @@ import typing
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor flop/s,
-#: bf16 dense tensor-core flop/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+from repro_torch.roofline.analysis import HW, kernel_roofline  # noqa: E402
+
+#: H100 SXM peaks (NVIDIA data sheet, ``repro_torch.roofline.analysis.HW``):
+#: fp32 non-tensor flop/s, bf16 dense tensor-core flop/s.
+PEAK_FP32_FLOPS = HW["peak_fp32_flops"]
+PEAK_BF16_FLOPS = HW["peak_flops"]
 
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
 PLAN_REL = 1e-5            # K2/K3/K4: max|kernel - plain| <= 1e-5 * max(|plain|, 1)
@@ -360,6 +383,8 @@ TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "6", "--batch", "8", "--seq", 
 TRAIN_PARITY = {"dense": "smollm-135m", "moe": "deepseek-moe-16b", "ssm": "mamba2-780m",
                 "hybrid": "jamba-v0.1-52b", "encdec": "whisper-large-v3",
                 "vlm": "internvl2-1b"}
+#: train_sharded:smollm-135m: steps of TRAIN_ARGV's schedule on the one-rank mesh
+TRAIN_SHARDED_STEPS = 3
 TRAIN_LOSS_REL = 1e-5      # fp32 loss, card vs CPU (tests/test_torch_train_loss.py's rtol)
 TRAIN_GRAD_REL = 1e-4      # each gradient leaf and the grad norm, vs max|CPU leaf| / the norm
 #: the card's new params and AdamW state against the CPU's ``adamw_update``
@@ -469,9 +494,10 @@ def ptxas_kernels(lines, marks):
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations"): ``kernel_roofline``'s bound of moving
+    ``nbytes`` through HBM and doing ``flops`` at ``peak_flops``."""
+    r = kernel_roofline(flops, nbytes, hw=dict(HW, peak_flops=peak_flops))
+    return r.roofline_s * 1e3, "bytes" if r.bound == "memory" else "operations"
 
 
 def nbytes(*tensors) -> int:
@@ -571,9 +597,9 @@ def grads_spy():
 
     seen, update = [], TS.adamw.adamw_update
 
-    def spy(cfg, grads, opt, params):
+    def spy(cfg, grads, opt, params, **kw):
         seen.append(grads)
-        return update(cfg, grads, opt, params)
+        return update(cfg, grads, opt, params, **kw)
 
     TS.adamw.adamw_update = spy
     try:
@@ -631,6 +657,105 @@ def update_dev(got, ref) -> float:
         d = (g - r).abs()
         worst = max(worst, float((d / scale.clamp(min=1e-30)).max()) if float(d.max()) else 0.0)
     return worst
+
+
+def train_sharded(TL, saved3, log3, ckpt_a: pathlib.Path, tmp: pathlib.Path, drive,
+                  seed: int) -> dict:
+    """Phase train_sharded:smollm-135m, inside the script's one-rank NCCL
+    group: the launcher's Trainer of TRAIN_ARGV with ``--mesh-shape 1,1``
+    (the sharded step, ZeRO-1 layout, gathers and data-axis means over the
+    mesh's groups) for TRAIN_SHARDED_STEPS steps of the same schedule and
+    batches, held to steps 1-3 of train:smollm-135m (``log3``, and the state
+    it saved at step 3, ``saved3``); then a mesh Trainer restores that
+    run's step-3 checkpoint (``ckpt_a``), which must be bit-equal."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import adamw as OPT
+
+    trainer, batches = TL.make_trainer(TRAIN_ARGV + ["--mesh-shape", "1,1"])
+    trainer.cfg = dataclasses.replace(trainer.cfg, total_steps=TRAIN_SHARDED_STEPS)
+    state, fields = drive("train_sharded:smollm-135m", [], lambda: trainer.run(
+        batches, torch.Generator().manual_seed(seed)))
+    log = trainer.metrics_log
+    full = trainer.full_state()
+    loss_dev = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(log, log3))
+    gnorm_dev = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                    for a, b in zip(log, log3))
+    params_dev = max(max_err(a.float(), b.float()) / max(float(b.float().abs().max()), 1e-30)
+                     for a, b in zip(OPT.leaves(full.params), OPT.leaves(saved3.params)))
+    bit_equal = (tree_bits_equal([full.params, full.opt], [saved3.params, saved3.opt])
+                 and [m["loss"] for m in log] == [m["loss"] for m in log3]
+                 and [m["grad_norm"] for m in log] == [m["grad_norm"] for m in log3])
+    ckpt_c = tmp / "c"
+    shutil.copytree(ckpt_a / "step_00000003", ckpt_c / "step_00000003")
+    restorer, _ = TL.make_trainer(TRAIN_ARGV + ["--mesh-shape", "1,1", "--ckpt-dir",
+                                                str(ckpt_c)])
+    t0 = time.perf_counter()
+    restorer.init_or_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    back = restorer.full_state()
+    restored_equal = tree_bits_equal([back.params, back.opt], [saved3.params, saved3.opt])
+    mesh = trainer.mesh
+    ok = (mesh is not None and not mesh.abstract and len(log) == TRAIN_SHARDED_STEPS
+          and [m["step"] for m in log] == list(range(1, TRAIN_SHARDED_STEPS + 1))
+          and loss_dev <= TRAIN_LOSS_REL and gnorm_dev <= TRAIN_GRAD_REL
+          and params_dev <= TRAIN_GRAD_REL and restored_equal and restorer.start_step == 3
+          and not fields["plain_runs"] and "flash_attention" not in fields["launches"]
+          and all(bool(torch.isfinite(t.float()).all()) for t in OPT.leaves(full.params)))
+    wall = fields.pop("wall_s")
+    return dict(
+        ok=ok, arch="smollm-135m", argv=TRAIN_ARGV + ["--mesh-shape", "1,1"],
+        mesh={k: v for k, v in mesh.shape.items()} if mesh else None,
+        backend=dist.get_backend(), steps=[dict(step=m["step"], loss=m["loss"],
+                                                grad_norm=m["grad_norm"],
+                                                step_s=m["step_time_s"]) for m in log],
+        reference_steps=[dict(step=m["step"], loss=m["loss"], grad_norm=m["grad_norm"])
+                         for m in log3],
+        bit_equal=bit_equal, loss_rel_dev=loss_dev, grad_norm_rel_dev=gnorm_dev,
+        params_rel_dev=params_dev, restored_step3_equal=restored_equal,
+        restore_s=restore_s, run_wall_s=wall,
+        peak_gb_less_script=(fields["max_memory_allocated"]
+                             - fields["memory_allocated_before"]) / 1e9,
+        tol=dict(loss_rel=TRAIN_LOSS_REL, grad_rel=TRAIN_GRAD_REL), **fields)
+
+
+def compression_phase(dev, seed: int) -> dict:
+    """Phase compression: ``compressed_psum_pod`` on the script's one-rank
+    NCCL group over gradients of smollm-135m's largest shapes (bf16 as its
+    params' gradients), against its plain version (the mean of one rank's
+    payload: ``dequantize_int8(*quantize_int8(g))`` cast back), which it
+    must equal bit for bit (a self-consistency check: one rank sends
+    nothing over the wire), and within JAX's 2e-2 * max|g| of the exact
+    mean (``g`` itself); times by CUDA events."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as C
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    grads = {"embed": torch.randn((49152, 576), generator=gen).to(dev, torch.bfloat16),
+             "mlp": torch.randn((30, 576, 1536), generator=gen).to(dev, torch.bfloat16),
+             "norm": (1e-3 * torch.randn((30, 576), generator=gen)).to(dev)}
+    group = dist.group.WORLD
+
+    def plain():
+        return {k: C.dequantize_int8(*C.quantize_int8(g)).to(g.dtype) for k, g in grads.items()}
+
+    got, ref = C.compressed_psum_pod(grads, group), plain()
+    torch.cuda.synchronize()
+    err = max(max_err(got[k].float(), ref[k].float()) for k in grads)
+    rel = max(max_err(got[k].float(), grads[k].float()) / float(grads[k].float().abs().max())
+              for k in grads)
+    numel = sum(g.numel() for g in grads.values())
+    ok = (err == 0.0 and rel <= 2e-2 and all(got[k].dtype == grads[k].dtype for k in grads)
+          and all(bool(torch.isfinite(got[k].float()).all()) for k in grads))
+    return dict(ok=ok, ranks=dist.get_world_size(group), backend=dist.get_backend(),
+                leaves={k: [list(g.shape), str(g.dtype)] for k, g in grads.items()},
+                max_abs_err_vs_plain=err, max_rel_err_vs_exact_mean=rel,
+                bound_rel_vs_exact=2e-2, wire_bytes_int8=numel + 4 * len(grads),
+                fp32_allreduce_bytes=4 * numel,
+                ms=timed(lambda: C.compressed_psum_pod(grads, group), 10),
+                plain_ms=timed(plain, 10))
 
 
 @contextlib.contextmanager
@@ -878,6 +1003,7 @@ def main(argv=None) -> int:
     from repro_torch.models import build_model
     from repro_torch.optim import adamw as OPT
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import model_flops
     from repro_torch.train import steps as TS
 
     dev = D.resolve("cuda")
@@ -1675,8 +1801,11 @@ def main(argv=None) -> int:
         state, fields = drive("train:smollm-135m", [], lambda: trainer.run(
             batches, torch.Generator().manual_seed(args.seed)))
         log = trainer.metrics_log
+        # 6 N D model FLOPs a step (N = 134.5 M params, D = 8 x 2048 tokens)
+        step_flops = model_flops(cfg, ShapeConfig("train", 2048, 8, "train"))
         steps = [dict(step=m["step"], loss=m["loss"], grad_norm=m["grad_norm"], lr=m["lr"],
-                      step_s=m["step_time_s"], tokens_s=tokens_per_step / m["step_time_s"])
+                      step_s=m["step_time_s"], tokens_s=tokens_per_step / m["step_time_s"],
+                      mfu=step_flops / (m["step_time_s"] * PEAK_BF16_FLOPS))
                  for m in log]
         steady = sorted(m["step_time_s"] for m in log[1:])
         steady_s = steady[len(steady) // 2]
@@ -1711,6 +1840,9 @@ def main(argv=None) -> int:
              params=sum(t.numel() for t in OPT.leaves(state.params)),
              tokens_per_step=tokens_per_step, steps=steps, steady_step_s=steady_s,
              steady_tokens_s=tokens_per_step / steady_s, run_wall_s=train_wall,
+             model_flops_per_step=step_flops,
+             steady_mfu=step_flops / (steady_s * PEAK_BF16_FLOPS),
+             mfu_note="model_flops (6 N D) / (step_s x the bf16 dense peak, 989 TFLOP/s)",
              peak_gb_less_script=(fields["max_memory_allocated"]
                                   - fields["memory_allocated_before"]) / 1e9,
              launches_note="counted over the whole run, recomputation in backward "
@@ -1726,8 +1858,20 @@ def main(argv=None) -> int:
              **fields)
         if not (ok and restart_ok):
             return 1
+        del trainer_b, state_b
+        torch.cuda.empty_cache()
+        with slab_group(dev):
+            sharded = train_sharded(TL, saved[3], log[:3], ckpt_a, pathlib.Path(tmp), drive,
+                                    args.seed)
+            emit("train_sharded:smollm-135m", **sharded)
+            if not sharded["ok"]:
+                return 1
+            comp = compression_phase(dev, args.seed)
+            emit("compression", **comp)
+            if not comp["ok"]:
+                return 1
         # one more step under the profiler, printed in phase profile
-        del saved, trainer_b, state_b
+        del saved
         prof_batch = next(TL.token_batches(trainer.model, 2048, 8, seed=args.seed + 1))
         with train_ranges(trainer.model):
             train_profile = profile("train:smollm-135m step",

@@ -1,4 +1,5 @@
-"""The slab-parallel solve on ``torch.distributed`` (mirrors
+"""The port's distributed side on ``torch.distributed`` (mirrors
 ``repro.distributed``): ``halo`` (exchanges and slab-local operators),
-``compression`` (int8 halo payloads), ``group`` (process groups) and
-``claire_dist`` (the slab solve)."""
+``compression`` (int8 halo payloads and the cross-pod gradient mean),
+``group`` (process groups), ``claire_dist`` (the slab solve) and
+``sharding`` (the LM's sharding rules and the blocks of a mesh)."""

@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.train --arch smollm-135m --smoke --steps 20 --device cpu
     python -m repro_torch.launch.train --arch smollm-135m --batch 8 --seq 2048
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch smollm-135m \
+        --smoke --device cpu --mesh-shape 2,2
 
 Port of ``repro.launch.train`` with its flags, for every family of
 ``ARCHS``: ``--smoke`` takes the reduced config; the weights are random
@@ -10,20 +12,33 @@ Port of ``repro.launch.train`` with its flags, for every family of
 feeds tokens only, which those two families' ``loss`` cannot take);
 checkpoints, preemption handling and straggler accounting come
 from ``Trainer``. ``--device`` defaults to ``cuda``, which raises without a
-card. Sharded training waits for ROADMAP A20.4: ``--mesh-shape`` of more
-than one device, ``production`` and ``--multi-pod`` raise
-``NotImplementedError``.
+card.
+
+Meshes, as in JAX's launcher: ``--mesh-shape d,m`` over the axes (``data``,
+``model``); ``production`` the (16, 16) mesh, ``--multi-pod`` the (2, 16,
+16) one over (``pod``, ``data``, ``model``); no flag, one device. A mesh
+runs one process per device, each reading the whole batch stream, from
+which the train step takes its rows. The ranks come from ``torchrun``'s
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, the rendezvous in
+``MASTER_ADDR`` / ``MASTER_PORT``), or from a process group the caller has
+initialised. A world whose size is not the mesh's raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import device as _device
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.data.tokens import SyntheticTokens
+from repro_torch.distributed import group as _group
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -40,7 +55,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. '1,1' (axes data,model); default: one device")
+                    help="e.g. '2,2' (axes data,model) or 'production'; default: one device")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
@@ -51,10 +66,8 @@ def make_trainer(argv=None):
     the launcher's ``AdamWConfig(lr, total_steps=steps, warmup_steps=
     max(steps // 10, 1))`` and an endless iterator of token batches."""
     args = _parser().parse_args(argv)
-    if args.multi_pod or args.mesh_shape == "production":
-        raise NotImplementedError("the production and multi-pod meshes: sharded training "
-                                  "is not ported yet (ROADMAP A20.4)")
-    mesh = tuple(int(x) for x in args.mesh_shape.split(",")) if args.mesh_shape else None
+    _device.resolve(args.device)
+    mesh = _launch_mesh(args.mesh_shape, args.multi_pod, args.device)
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -69,6 +82,32 @@ def make_trainer(argv=None):
         opt=opt))
 
     return trainer, token_batches(model, args.seq, args.batch)
+
+
+def _launch_mesh(mesh_shape, multi_pod: bool, device):
+    """The launcher's mesh: None without a flag; else a mesh of the flag's
+    shape, abstract for one device outside a world, otherwise over the
+    caller's process group or one joined from ``torchrun``'s environment
+    (NCCL on ``cuda``, gloo on ``cpu``)."""
+    if multi_pod or mesh_shape == "production":
+        prod = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+        shape, axes = tuple(prod.shape.values()), prod.axis_names
+    elif mesh_shape:
+        shape = tuple(int(x) for x in mesh_shape.split(","))
+        axes = mesh_lib.SHAPE_AXES[:len(shape)]
+    else:
+        return None
+    need = math.prod(shape)
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    else:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != need:
+        raise ValueError(f"a {shape} mesh over {axes} needs {need} ranks, the world has "
+                         f"{world} (torchrun --nproc-per-node {need})")
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        _group.init_slab_group(int(os.environ["RANK"]), world, "env://", device)
+    return mesh_lib.make_mesh(shape, axes, device)
 
 
 def token_batches(model, seq: int, batch: int, seed: int = 0):
@@ -91,10 +130,16 @@ def token_batches(model, seq: int, batch: int, seed: int = 0):
 
 
 def main(argv=None):
-    trainer, batches = make_trainer(argv)
-    state = trainer.run(batches, generator=torch.Generator().manual_seed(0))
-    print(f"[train] done at step {int(state.opt['step'])}; "
-          f"stragglers={trainer.straggler_steps}")
+    joined = not dist.is_initialized()
+    try:
+        trainer, batches = make_trainer(argv)
+        state = trainer.run(batches, generator=torch.Generator().manual_seed(0))
+        if trainer.rank0:
+            print(f"[train] done at step {int(state.opt['step'])}; "
+                  f"stragglers={trainer.straggler_steps}")
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -91,16 +91,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: (new params, new optimizer state, {"grad_norm",
     "lr"}). The gradients are scaled by ``min(1, grad_clip / max(gnorm,
     1e-9))``; the moments are bias-corrected with the incremented step; the
-    weight decay applies to every leaf, norms and biases included."""
+    weight decay applies to every leaf, norms and biases included. ``gnorm``
+    is the global norm of the whole gradient tree where ``grads``, the state
+    and ``params`` (read for its dtypes) are blocks of it (a sharded step);
+    by default it is that of ``grads``."""
     step = opt_state["step"] + 1
     lr = cosine_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     # a true division (a Python number / a tensor multiplies by a reciprocal)
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

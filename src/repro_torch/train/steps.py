@@ -2,23 +2,39 @@
 
 A :class:`TrainState` holds the params and the AdamW state as trees in the
 JAX layout (each decoder and encoder segment's leaves stacked over its
-repeats), on the model's device: a checkpoint of it is the JAX package's,
-leaf for leaf. ``make_train_step`` returns the step: the loss and its
+repeats): a checkpoint of it is the JAX package's, leaf for leaf.
+``make_train_step(model, mesh)`` returns the step: the loss and its
 gradients through autograd (``Model.loss`` on leaves that require grad),
-then ``adamw_update``. Sharding waits for ROADMAP A20.4: the step runs on
-one device, the model's, and a mesh of more than one device raises.
+then ``adamw_update``.
+
+The step runs on a mesh (:func:`resolve_mesh`): one device is an abstract
+(1, 1) mesh over (``data``, ``model``), as in JAX's launcher, on which
+every spec is empty and no collective runs. On a mesh with ranks
+(``repro_torch.launch.mesh.make_mesh`` inside a ``torch.distributed``
+world) each rank stores the blocks that JAX's sharding rules give it
+(:func:`state_specs`): bf16 params by ``param_specs`` (over ``model``), the
+AdamW ``m``, ``v`` and ``master`` by ``opt_specs`` (ZeRO-1: also over the
+data axes), ``step`` replicated. A step gathers the params over ``model``,
+takes the rank's rows of the global batch (``batch_specs``' dim 0), runs
+autograd on them, averages the gradients and metrics over the data axes,
+takes the global grad norm from the whole reduced tree, updates its
+opt-spec blocks and all-gathers the new bf16 master blocks over the data
+axes back into the param layout. The ranks of one ``model`` group compute
+the same rows: tensor-parallel compute waits for ROADMAP A20.4b.
 """
 
 from __future__ import annotations
 
-import math
 import os
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..distributed import sharding as shd
+from ..launch import mesh as mesh_lib
 from ..models import api as _api
 from ..models import attention as _attn
+from ..models import moe as _moe
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig
 
@@ -28,11 +44,22 @@ class TrainState(NamedTuple):
     opt: Dict[str, Any]
 
 
-def _check_mesh(mesh) -> None:
-    """``mesh``: None or a mesh shape of one device; anything larger raises."""
-    if mesh is not None and math.prod(mesh) != 1:
-        raise NotImplementedError(f"a {tuple(mesh)} mesh: sharded training is not ported "
-                                  "yet (ROADMAP A20.4); the port trains on one device")
+def resolve_mesh(mesh) -> mesh_lib.Mesh:
+    """The mesh a step runs on: ``None`` is one device, an abstract (1, 1)
+    mesh over (``data``, ``model``); a shape tuple becomes
+    ``make_mesh(shape, SHAPE_AXES[:len(shape)])``, as the launcher's
+    ``--mesh-shape`` does. An abstract mesh of more than one device (no
+    ranks) raises ``ValueError``."""
+    if mesh is None:
+        mesh = mesh_lib.Mesh((1, 1), mesh_lib.SHAPE_AXES)
+    elif not isinstance(mesh, mesh_lib.Mesh):
+        shape = tuple(mesh)
+        mesh = mesh_lib.make_mesh(shape, mesh_lib.SHAPE_AXES[:len(shape)])
+    if mesh.abstract and mesh.size > 1:
+        raise ValueError(f"a {tuple(mesh.shape.values())} mesh over {mesh.axis_names} has "
+                         f"no ranks: it needs a torch.distributed world of {mesh.size} "
+                         "(torchrun --nproc-per-node)")
+    return mesh
 
 
 def init_train_state(model, generator: Optional[torch.Generator] = None,
@@ -53,6 +80,36 @@ def abstract_train_state(model) -> TrainState:
     return TrainState(params, adamw.adamw_init(params))
 
 
+def state_specs(model, mesh) -> TrainState:
+    """The spec of every leaf of the train state on ``mesh`` (JAX's
+    ``state_shardings``): params by ``param_specs``, ``m``, ``v`` and
+    ``master`` by ``opt_specs``, ``step`` replicated."""
+    params = abstract_train_state(model).params
+    o = shd.opt_specs(params, mesh)
+    return TrainState(shd.param_specs(params, mesh), {"m": o, "v": o, "master": o,
+                                                      "step": shd.P()})
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a state tree and its spec tree."""
+    if isinstance(tree, tuple):  # TrainState
+        return type(tree)(*(_zip_map(fn, t, s) for t, s in zip(tree, specs)))
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """This rank's blocks of a full train state."""
+    return _zip_map(lambda t, s: shd.shard(t, s, mesh), state, specs)
+
+
+def gather_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """The full train state from every rank's blocks (a collective: every
+    rank calls it)."""
+    return _zip_map(lambda t, s: shd.gather(t, s, mesh), state, specs)
+
+
 def _split(batch, k: int):
     """``batch`` cut into ``k`` microbatches along the batch axis."""
     for name, x in batch.items():
@@ -63,14 +120,36 @@ def _split(batch, k: int):
              for name, x in batch.items()} for i in range(k)]
 
 
+def _rows(model, mesh, batch):
+    """This rank's rows of a global batch by ``batch_specs``' dim 0. A MoE
+    model routes in token-major groups of ``GROUP_SIZE`` tokens: split rows
+    give the whole batch's groups only when a rank holds a multiple of
+    ``GROUP_SIZE`` tokens, so other splits raise ``ValueError``."""
+    entries = {shd.batch_specs(batch, mesh)[k][0] for k in batch}
+    if len(entries) != 1:
+        raise ValueError(f"the batch's leaves split differently over the mesh: {entries}")
+    entry = entries.pop()
+    n = mesh_lib.axis_size(mesh, shd.entry_axes(entry))
+    if n == 1:
+        return batch
+    rows, seq = batch["tokens"].shape[0] // n, batch["tokens"].shape[1]
+    if model.cfg.n_experts and (rows * seq) % _moe.GROUP_SIZE:
+        raise ValueError(f"a MoE model routes in groups of {_moe.GROUP_SIZE} tokens: "
+                         f"{rows} rows x {seq} tokens a rank ({n} ranks over {entry}) split "
+                         f"the groups; give each rank a multiple of {_moe.GROUP_SIZE} tokens")
+    return {k: shd.shard(x, shd.P(entry), mesh) for k, x in batch.items()}
+
+
 def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> Callable:
-    """``train_step(state, batch) -> (state, metrics)`` on the model's device,
-    metrics ``loss``, ``xent``, ``aux``, ``grad_norm`` and ``lr`` (0-d
-    tensors). ``REPRO_MICROBATCH=k`` (read here) accumulates the fp32
-    gradients of ``k`` microbatches, as in JAX, where ``xent`` then holds the
-    mean total loss. ``REPRO_SCORE_BF16=1`` (read at each step) computes the
-    attention scores in bf16."""
-    _check_mesh(mesh)
+    """``train_step(state, batch) -> (state, metrics)``, metrics ``loss``,
+    ``xent``, ``aux``, ``grad_norm`` and ``lr`` (0-d tensors, the same on
+    every rank). ``mesh``: see :func:`resolve_mesh`; ``state`` holds this
+    rank's blocks (:func:`shard_state`; on one device the whole state) and
+    ``batch`` is the global batch. ``REPRO_MICROBATCH=k`` (read here)
+    accumulates the fp32 gradients of ``k`` microbatches of the rank's rows,
+    as in JAX, where ``xent`` then holds the mean total loss. ``REPRO_SCORE_BF16=1`` (read at
+    each step) computes the attention scores in bf16."""
+    mesh = resolve_mesh(mesh)
     microbatches = int(os.environ.get("REPRO_MICROBATCH", "0")) or 1
     dev = model.dev
 
@@ -87,24 +166,44 @@ def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> C
             _attn.reset_block_config()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
-    def train_step(state: TrainState, batch):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    def value_and_grads(params, batch):
         if microbatches <= 1:
-            loss, metrics, grads = loss_and_grads(state.params, batch)
-        else:
-            k = microbatches
-            acc, loss_sum, aux_sum = None, 0.0, 0.0
-            for mb in _split(batch, k):
-                loss_i, metrics_i, grads_i = loss_and_grads(state.params, mb)
-                acc = ([g.float() for g in grads_i] if acc is None
-                       else [a + g.float() for a, g in zip(acc, grads_i)])
-                loss_sum = loss_sum + loss_i
-                aux_sum = aux_sum + metrics_i["aux"]
-            grads = [a / k for a in acc]
-            loss = loss_sum / k
-            metrics = {"aux": aux_sum / k, "xent": loss}
-        new_params, new_opt, opt_metrics = adamw.adamw_update(
-            opt_cfg, adamw.unflatten(state.params, grads), state.opt, state.params)
+            return loss_and_grads(params, batch)
+        k = microbatches
+        acc, loss_sum, aux_sum = None, 0.0, 0.0
+        for mb in _split(batch, k):
+            loss_i, metrics_i, grads_i = loss_and_grads(params, mb)
+            acc = ([g.float() for g in grads_i] if acc is None
+                   else [a + g.float() for a, g in zip(acc, grads_i)])
+            loss_sum = loss_sum + loss_i
+            aux_sum = aux_sum + metrics_i["aux"]
+        loss = loss_sum / k
+        return loss, {"aux": aux_sum / k, "xent": loss}, [a / k for a in acc]
+
+    def to_device(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    specs = state_specs(model, mesh)
+    p_specs, o_specs = adamw.leaves(specs.params), adamw.leaves(specs.opt["m"])
+    dp = mesh_lib.dp_axis_names(mesh)
+
+    def train_step(state: TrainState, batch):
+        rows = _rows(model, mesh, to_device(batch))
+        params = adamw.unflatten(state.params, [
+            shd.gather(t, s, mesh) for t, s in zip(adamw.leaves(state.params), p_specs)])
+        loss, metrics, grads = value_and_grads(params, rows)
+        names = sorted(metrics)
+        reduced = shd.mean_over(grads + [loss] + [metrics[k] for k in names], mesh, dp)
+        grads, loss = reduced[:len(grads)], reduced[len(grads)]
+        metrics = dict(zip(names, reduced[len(grads) + 1:]))
+        gnorm = adamw.global_norm(grads)
+        blocks = [shd.shard(g, s, mesh) for g, s in zip(grads, o_specs)]
+        new_blocks, new_opt, opt_metrics = adamw.adamw_update(
+            opt_cfg, adamw.unflatten(state.params, blocks), state.opt, state.params,
+            gnorm=gnorm)
+        new_params = adamw.unflatten(state.params, [
+            shd.gather(t, s, mesh, axes=dp)
+            for t, s in zip(adamw.leaves(new_blocks), o_specs)])
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return TrainState(new_params, new_opt), metrics
 

@@ -595,7 +595,7 @@ def test_smoke_family_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
     seen = []
     update = TS.adamw.adamw_update
     monkeypatch.setattr(TS.adamw, "adamw_update",
-                        lambda c, g, o, p: seen.append(g) or update(c, g, o, p))
+                        lambda c, g, o, p, **kw: seen.append(g) or update(c, g, o, p, **kw))
     runs = []
     for d in ("cpu", cuda):
         model = build_model(cfg, d)
@@ -614,3 +614,131 @@ def test_smoke_family_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
     for got, ref in [(n1.params, ref_p)] + [(n1.opt[k], ref_o[k]) for k in ("m", "v", "master")]:
         for g, r in zip(OPT.leaves(got), OPT.leaves(ref)):
             torch.testing.assert_close(g.cpu(), r, rtol=1e-6, atol=1e-6 * float(r.abs().max()))
+
+
+def _sharded_ranks(rank, n, init, out_dir):
+    """One NCCL rank (its own card) of ``test_sharded_train_step_on_nccl_ranks``:
+    two fp32 steps of the smollm and deepseek smoke configs on each mesh;
+    rank 0 holds each step against its card's single-device loss and
+    gradients and the ``adamw_update`` of the reduced gradients."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as ML
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train import steps as TS
+
+    G.init_slab_group(rank, n, init, "cuda")
+    try:
+        meshes = [((n, 1), ("data", "model")), ((1, n), ("data", "model"))]
+        if n % 2 == 0:
+            meshes += [((2, n // 2), ("data", "model")), ((2, n // 2, 1), ("pod", "data", "model"))]
+        ocfg = OPT.AdamWConfig(lr=3e-4, total_steps=6, warmup_steps=1)
+        report = []
+        for arch, seq in (("smollm-135m", 64), ("deepseek-moe-16b", 128)):
+            cfg = dataclasses.replace(ARCHS[arch].smoke(), param_dtype="float32",
+                                      compute_dtype="float32")
+            model = build_model(cfg, "cuda")
+            for shape, axes in meshes:
+                mesh = ML.make_mesh(shape, axes, device="cuda")
+                full = TS.init_train_state(model, torch.Generator().manual_seed(0), ocfg)
+                specs = TS.state_specs(model, mesh)
+                state = TS.shard_state(full, specs, mesh)
+                seen, real = [], SH.mean_over
+                SH.mean_over = lambda t, m, a: seen.append(real(t, m, a)) or seen[-1]
+                try:
+                    step = TS.make_train_step(model, mesh, ocfg)
+                    gen = torch.Generator().manual_seed(1)
+                    for _ in range(2):
+                        batch = {k: torch.randint(0, 256, (2 * n, seq), generator=gen)
+                                 for k in ("tokens", "targets")}
+                        state, met = step(state, batch)
+                        after = TS.gather_state(state, specs, mesh)
+                        if rank == 0:
+                            grads = seen[-1][:len(OPT.leaves(full.params))]
+                            leaves = [p.detach().requires_grad_(True)
+                                      for p in OPT.leaves(full.params)]
+                            loss, _ = model.loss({k: v.cuda() for k, v in batch.items()},
+                                                 OPT.unflatten(full.params, leaves))
+                            single = torch.autograd.grad(loss, leaves)
+                            ref_p, ref_o, _ = OPT.adamw_update(
+                                ocfg, OPT.unflatten(full.params, grads), full.opt, full.params)
+                            report.append(dict(
+                                arch=arch, mesh=shape,
+                                loss_rel=abs(float(met["loss"]) - float(loss.detach()))
+                                / float(loss.detach()),
+                                grad_rel=max(float((g - s).abs().max()) / float(s.abs().max())
+                                             for g, s in zip(grads, single)),
+                                update_equal=all(torch.equal(a, b) for a, b in zip(
+                                    OPT.leaves([after.params, after.opt]),
+                                    OPT.leaves([ref_p, ref_o])))))
+                        full = after
+                finally:
+                    SH.mean_over = real
+        torch.save(report, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_train_step_on_nccl_ranks(cuda, tmp_path):
+    """The sharded train step over one NCCL rank per card (all the cards):
+    meshes (N, 1), (1, N), (2, N/2) and (2, N/2, 1) over pod, data, model;
+    loss rtol 1e-5 and every reduced gradient leaf within 1e-4 * max|leaf|
+    of the single-device step on the same card, the update bit-equal to
+    ``adamw_update`` of the reduced gradients."""
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    mp.start_processes(_sharded_ranks, args=(n, f"file://{tmp_path}/store", str(tmp_path)),
+                       nprocs=n, join=True, start_method="spawn")
+    report = torch.load(tmp_path / "rank0.pt")
+    assert len(report) == 2 * (4 if n % 2 == 0 else 2) * 2
+    for r in report:
+        assert r["loss_rel"] <= 1e-5 and r["grad_rel"] <= 1e-4 and r["update_equal"], r
+
+
+def _compression_ranks(rank, n, init, out_dir):
+    """One NCCL rank (its own card) of ``test_compressed_psum_pod_on_nccl_ranks``:
+    ``compressed_psum_pod`` over the world of every rank's seeded gradients;
+    rank 0 holds the result against the mean of every rank's dequantised
+    payload, computed on its own card, and against the exact mean."""
+    from repro_torch.distributed import compression as C
+
+    G.init_slab_group(rank, n, init, "cuda")
+    try:
+        def grads_of(r):
+            gen = torch.Generator().manual_seed(100 + r)
+            return {"w": torch.randn((257, 96), generator=gen).cuda().to(torch.bfloat16),
+                    "b": (1e-3 * torch.randn((3, 5), generator=gen)).cuda()}
+
+        got = C.compressed_psum_pod(grads_of(rank), dist.group.WORLD)
+        if rank == 0:
+            every = [grads_of(r) for r in range(n)]
+            report = {}
+            for k, g in got.items():
+                plain = torch.mean(torch.stack(
+                    [C.dequantize_int8(*C.quantize_int8(e[k])) for e in every]), 0).to(g.dtype)
+                exact = torch.mean(torch.stack([e[k].float() for e in every]), 0)
+                report[k] = dict(equal=torch.equal(g, plain), dtype=g.dtype == every[0][k].dtype,
+                                 rel=float((g.float() - exact).abs().max())
+                                 / float(exact.abs().max()))
+            torch.save(report, f"{out_dir}/rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_psum_pod_on_nccl_ranks(cuda, tmp_path):
+    """The int8 cross-pod mean over one NCCL rank per card (all the cards):
+    bit-equal to the mean of the ranks' dequantised payloads, the leaf's
+    dtype kept, within JAX's 2e-2 * max|mean| of the exact mean."""
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    mp.start_processes(_compression_ranks, args=(n, f"file://{tmp_path}/store", str(tmp_path)),
+                       nprocs=n, join=True, start_method="spawn")
+    report = torch.load(tmp_path / "rank0.pt")
+    assert set(report) == {"w", "b"}
+    for r in report.values():
+        assert r["equal"] and r["dtype"] and r["rel"] <= 2e-2, r

@@ -85,6 +85,13 @@ def test_import_scan_covers_training():
         assert f"src/repro_torch/{name}.py" in scanned
 
 
+def test_import_scan_covers_sharded_training_and_the_roofline():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("launch/mesh", "distributed/sharding", "distributed/compression",
+                 "roofline/__init__", "roofline/analysis", "roofline/lm"):
+        assert f"src/repro_torch/{name}.py" in scanned
+
+
 def test_import_scan_covers_checkpoint_and_serve():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("checkpoint/__init__", "checkpoint/checkpoint", "serve/__init__",

@@ -23,6 +23,7 @@ import torch
 from repro.optim import adamw as JO
 from repro.train.steps import TrainState as JTrainState
 from repro_torch import interop
+from repro_torch.launch import mesh as ML
 from repro_torch.models import attention as TA
 from repro_torch.models import build_model
 from repro_torch.optim import adamw as TO
@@ -60,9 +61,9 @@ def _spy_grads(monkeypatch):
     seen = []
     real = TS.adamw.adamw_update
 
-    def spy(cfg, grads, opt, params):
+    def spy(cfg, grads, opt, params, **kw):
         seen.append(grads)
-        return real(cfg, grads, opt, params)
+        return real(cfg, grads, opt, params, **kw)
 
     monkeypatch.setattr(TS.adamw, "adamw_update", spy)
     return seen
@@ -147,12 +148,24 @@ def test_score_bf16_switch_is_set_for_the_step_and_reset(monkeypatch):
 
 
 def test_a_mesh_of_more_than_one_device_raises():
+    """Without its ranks (no torch.distributed world) a mesh of more than one
+    device raises ``ValueError``; one device runs on an abstract mesh of one
+    device (the sharded step: ``test_torch_train_sharded.py``). A shape
+    tuple names its axes as the launcher's ``--mesh-shape`` does."""
     _, _, tm = pair("smollm-135m", True)
-    for mesh in ((2, 1), (1, 4), (16, 16)):
-        with pytest.raises(NotImplementedError, match="A20.4"):
+    for mesh in ((2, 1), (1, 4), (16, 16), (4,), ML.Mesh((2, 2, 1), ("pod", "data", "model")),
+                 ML.make_production_mesh(), ML.make_production_mesh(multi_pod=True),
+                 ML.Mesh((4,), ("data",))):
+        with pytest.raises(ValueError, match="no ranks: it needs a torch.distributed world"):
             TS.make_train_step(tm, mesh, TCFG)
-    TS.make_train_step(tm, (1, 1), TCFG)
-    TS.make_train_step(tm, None, TCFG)
+    with pytest.raises(ValueError, match="one distinct name per axis"):
+        TS.resolve_mesh((2, 2, 1))
+    for mesh, shape in (((1, 1), {"data": 1, "model": 1}), ((1,), {"data": 1}),
+                        (None, {"data": 1, "model": 1}),
+                        (ML.Mesh((1, 1), ("data", "model")), {"data": 1, "model": 1})):
+        got = TS.resolve_mesh(mesh)
+        assert got.abstract and got.shape == shape
+        TS.make_train_step(tm, mesh, TCFG)
 
 
 def test_abstract_state_has_the_state_layout():

@@ -190,10 +190,20 @@ def test_launcher_trains_each_family_on_the_cpu(arch, capsys):
 
 
 def test_launcher_refuses_a_missing_card_and_sharded_meshes(monkeypatch):
+    """A missing card raises as before, with a mesh too; a mesh whose ranks
+    are not there (no torchrun world) raises ``ValueError`` naming both
+    sizes (the sharded launcher: ``test_torch_train_sharded.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
-    for extra in (["--mesh-shape", "2,2"], ["--mesh-shape", "production"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="A20.4"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for extra in ([], ["--mesh-shape", "2,2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"] + extra)
+    for extra, need in ((["--mesh-shape", "2,2"], 4), (["--mesh-shape", "production"], 256),
+                        (["--multi-pod"], 512), (["--mesh-shape", "4"], 4)):
+        with pytest.raises(ValueError, match=f"needs {need} ranks, the world has 1"):
             launch_train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
                                "--steps", "1"] + extra)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 2"):
+        launch_train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+                           "--steps", "1", "--mesh-shape", "2,2"])
