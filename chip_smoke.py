@@ -37,7 +37,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               head_dim, causal (whisper: the encoder's non-causal at 1500
               frames and the decoder's at 187 tokens; mamba2 has none); and
               bf16 at K6_EDGE: S = 1, 37, 64, 2000,
-              4097, hd 64 and 128, both flags). Two faulty plain versions at
+              4097, hd 64 and 128, both flags; and with a query offset at
+              K6_OFFSET, smollm-135m's sequence-parallel prefill on a model
+              axis of 4: a rank's 512 query rows at offsets 0 / 512 / 1024 /
+              1536 of 2048 keys, BH 72, hd 64, fp32 and bf16, causal). Two
+              faulty plain versions at
               (a), P rounded to bf16 before P.V and the last key tile
               dropped, must fail
               K6's bf16 check, so that the check can see such faults.
@@ -120,12 +124,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              full width (24 layers, MHA, random seeded
                              weights, bf16): 8 requests x 2048-token prompt
                              + 64 generated; K6 once per layer
+              serve_sharded:qwen1.5-0.5b  right after it, the same prompts
+                             through ``repro_torch.train.steps``'
+                             ``make_prefill_step`` and 16 greedy steps of
+                             ``make_decode_step`` on the one-rank NCCL
+                             (data, model) mesh, from the rank's param and
+                             cache blocks (the model's per-layer weights made
+                             views of the stacked leaves first): the prefill
+                             logits bit-equal to serve_lm's, the ids equal to
+                             its first 17, K6 once per layer (the model has
+                             one code path for every mesh: this checks the
+                             steps' blocks, rows and gathers on NCCL)
               serve_lm:smollm-135m   30 layers, GQA (K/V repeated), 8 x 2000
                              (a ragged tail) + 48
               serve_lm:deepseek-moe-16b  28 layers (a dense first layer, 27
                              MoE: 64 experts top-6, 2 shared), 8 x 2048 + 32,
                              K6 28 times a prefill, and the capacity-drop
                              share of one more prefill
+              serve_sharded:deepseek-moe-16b  as serve_sharded:qwen1.5-0.5b
+                             (K6 28 times)
               serve_lm:mamba2-780m   48 SSD layers, 8 x 2048 + 64, no K6
               serve_lm:jamba-v0.1-52b  one 8-layer period of the 32 (printed
                              under ``reduced``), GQA 32/8, MoE 16 top-2,
@@ -178,8 +195,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 18. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one (K6: SDPA); K4
-              also at uniform queries, and ptxas' registers and spills of
-              each K2 / K4 variant.
+              also at uniform queries, K6 also with a query offset at
+              K6_OFFSET (bound over the unmasked pairs, SDPA with the same
+              boolean mask), and ptxas' registers and spills of each K2 /
+              K4 variant.
 19. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
               and the device's idle share of the unprofiled wall time; the
@@ -322,6 +341,10 @@ K6_CASES = {
     "c": (28, 1024, 128, "bfloat16", (True,)),
     "d": (16, 16384, 64, "bfloat16", (True,)),
 }
+#: K6 with a query offset: smollm-135m's sequence-parallel prefill on a
+#: model axis of 4 (8 requests x 9 heads, 2048 keys, a rank's 512 query rows
+#: at each rank's offset), hd 64, causal: (BH, S_kv, S_q, hd, offsets).
+K6_OFFSET = (72, 2048, 512, 64, (0, 512, 1024, 1536))
 #: bf16 K6 at one query row, part tiles and one whole tile: (BH, S) per hd.
 K6_EDGE = [(3, 1), (3, 37), (3, 64), (3, 2000), (2, 4097)]
 #: K1 at the shapes its tiling makes awkward, K=3 stacks: n < R (the wrap
@@ -364,6 +387,13 @@ LM_PATHS = {
     "serve_lm:whisper-large-v3": LMPath("whisper-large-v3", 8, 1500, 32, 64, init_on="cuda"),
     "serve_lm:internvl2-1b": LMPath("internvl2-1b", 8, 2048, 64, 24, init_on="cuda"),
 }
+#: serve_sharded: the serving paths driven again, while their model is on the
+#: card, through the sharded prefill and decode steps (``train.steps``) on
+#: the one-rank NCCL (data, model) mesh: serve_lm label -> phase label; the
+#: decode steps held to the serve_lm phase's ids.
+SERVE_SHARDED = {"serve_lm:qwen1.5-0.5b": "serve_sharded:qwen1.5-0.5b",
+                 "serve_lm:deepseek-moe-16b": "serve_sharded:deepseek-moe-16b"}
+SERVE_SHARDED_DECODE = 16
 #: reference_lm: arch -> (requests, prompt) of its smoke config's batch; the
 #: MoE families need B * S a multiple of the 128-token group.
 REF_LM = {"qwen1.5-0.5b": (3, 100), "smollm-135m": (3, 100), "deepseek-moe-16b": (2, 64),
@@ -657,6 +687,98 @@ def update_dev(got, ref) -> float:
         d = (g - r).abs()
         worst = max(worst, float((d / scale.clamp(min=1e-30)).max()) if float(d.max()) else 0.0)
     return worst
+
+
+def k6_offset_cost(bh: int, s_kv: int, s_q: int, hd: int, offset: int, itemsize: int):
+    """(flops, bytes) K6 with a query offset needs, causal: 4 hd per unmasked
+    (query, key) pair; q and out once, and K/V up to the last query's key."""
+    pairs = bh * (s_q * offset + s_q * (s_q + 1) / 2)
+    keys = offset + s_q
+    return 4.0 * hd * pairs, itemsize * bh * hd * (2 * s_q + 2 * keys)
+
+
+def stack_in_place(model):
+    """The model's params as a tree in the JAX layout (each segment's leaves
+    stacked over its repeats) whose per-layer parameters become views of the
+    stacked leaves, one leaf at a time: no second copy of the weights."""
+    import torch
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([t[k] for t in layers]) for k in layers[0]}
+        out = torch.stack([t.detach() for t in layers])
+        for r, t in enumerate(layers):
+            t.data = out[r]
+        return out
+
+    p = model.params()
+    tree = {k: v for k, v in p.items() if k not in ("decoder", "encoder")}
+    for k in ("decoder", "encoder"):
+        if k in p:
+            tree[k] = {seg: {sub: stack(layers) for sub, layers in subs.items()}
+                       for seg, subs in p[k].items()}
+    return tree
+
+
+def serve_sharded(model, batch, res, gen: int, k6: int, drive, label: str) -> dict:
+    """Phase serve_sharded:<arch>, inside the script's one-rank NCCL group:
+    the prompt batch of the serve_lm phase through ``train.steps``'
+    ``make_prefill_step`` and SERVE_SHARDED_DECODE greedy steps of
+    ``make_decode_step`` on the (data, model) = (1, 1) mesh, from the
+    rank's ``param_specs`` and ``cache_specs`` blocks; the prefill's logits
+    and the ids bit-equal to the serve_lm phase's (``res``), K6 launched
+    once a self-attention layer. The model runs the same code as in
+    serve_lm (one form for every mesh, a one-rank model group): what this
+    holds are the steps' wrappers on an NCCL mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as ML
+    from repro_torch.launch import serve_lm
+    from repro_torch.train import steps as TS
+
+    t0 = time.perf_counter()
+    tree = stack_in_place(model)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    mesh = ML.make_mesh((1, 1), ("data", "model"))
+    params = TS.shard_params(tree, mesh)
+    b, p = batch["tokens"].shape[0], serve_lm.prompt_len(batch)
+    n = SERVE_SHARDED_DECODE
+    prefill = TS.make_prefill_step(model, mesh)
+    decode = TS.make_decode_step(model, mesh, b, p + gen)
+    walls = {}
+
+    def run():
+        t = time.perf_counter()
+        logits = prefill(params, batch)
+        ids = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+        torch.cuda.synchronize()
+        walls["prefill_s"] = time.perf_counter() - t
+        cache = TS.shard_cache(model.make_cache(b, p + gen), mesh)
+        t = time.perf_counter()
+        for i in range(n):
+            lg, cache = decode(params, cache, ids[-1], p + i)
+            ids.append(torch.argmax(lg[:, -1], dim=-1)[:, None])
+        torch.cuda.synchronize()
+        walls["decode_s"] = time.perf_counter() - t
+        return logits, torch.cat(ids, dim=1)
+
+    (logits, ids), fields = drive(label, ["flash_attention"], run)
+    want_ids = res.ids[:, :n + 1]
+    logits_equal = tree_bits_equal(logits, res.prefill_logits)
+    ids_equal = torch.equal(ids, want_ids)
+    launched = fields["launches"].get("flash_attention", 0)
+    ok = (logits_equal and ids_equal and launched == k6 and not fields["missing"]
+          and not fields["plain_runs"] and not mesh.abstract)
+    fields.pop("wall_s")
+    return dict(ok=ok, mesh={k: v for k, v in mesh.shape.items()}, backend=dist.get_backend(),
+                requests=b, prompt_len=p, decode_steps=n,
+                prefill_logits_bit_equal=logits_equal, ids_equal=ids_equal,
+                k6_launches=launched, k6_expected=k6, stack_in_place_s=stack_s,
+                prefill_s=walls["prefill_s"], decode_s=walls["decode_s"],
+                decode_tok_s=b * n / walls["decode_s"], ids_first_request=ids[0].tolist(),
+                peak_gb_less_script=(fields["max_memory_allocated"]
+                                     - fields["memory_allocated_before"]) / 1e9, **fields)
 
 
 def train_sharded(TL, saved3, log3, ckpt_a: pathlib.Path, tmp: pathlib.Path, drive,
@@ -1207,6 +1329,22 @@ def main(argv=None) -> int:
                                         f"causal={causal}", max_abs_err=err, differ_share=differ,
                                    tol=K6_TOL["bfloat16"], ok=ok))
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+    # K6 with a query offset: a rank's rows of smollm's sequence-parallel prefill
+    bh, s_kv, s_q, hd, offsets = K6_OFFSET
+    k6_offset_inputs = {}
+    for dt in ("float32", "bfloat16"):
+        qkv = tuple(torch.randn((bh, s_kv, hd), generator=cuda_gen, device=dev)
+                    .to(getattr(torch, dt)) for _ in range(3))
+        k6_offset_inputs[dt] = qkv
+        for off in offsets:
+            q = qkv[0][:, off:off + s_q].contiguous()
+            ok, err, differ = k6_close(
+                FA.flash_attention(q, qkv[1], qkv[2], causal=True, q_offset=off),
+                FA.flash_attention_plain(q, qkv[1], qkv[2], True, off), dt)
+            checks.append(dict(case=f"flash_attention (offset) q {[bh, s_q, hd]} at {off} of "
+                                    f"{s_kv} keys {dt} causal=True", max_abs_err=err,
+                               differ_share=differ, tol=K6_TOL[dt], ok=ok))
+            errs["flash_attention"] = max(errs["flash_attention"], err)
     # the bf16 check must fail faulty plain versions at (a)
     qkv = k6_inputs["a"]
     for fault, causal in (("p_bf16", False), ("p_bf16", True), ("drop_tile", False)):
@@ -1728,6 +1866,13 @@ def main(argv=None) -> int:
              ids_first_request=res.ids[0].tolist(), **moe_fields, **fields)
         if not ok:
             return 1
+        if label in SERVE_SHARDED:
+            with slab_group(dev):
+                sharded = serve_sharded(model, lm_batch, res, g, path.k6, drive,
+                                        SERVE_SHARDED[label])
+            emit(SERVE_SHARDED[label], arch=path.arch, **sharded)
+            if not sharded["ok"]:
+                return 1
         lm_walls[label] = (res.prefill_s, res.decode_s)
         if path.arch == "qwen1.5-0.5b":
             lm_keep = (model, lm_batch, g)
@@ -1998,12 +2143,32 @@ def main(argv=None) -> int:
         return torch.nn.functional.scaled_dot_product_attention(
             qa[None], ka[None], va[None], is_causal=True)[0]
 
+    offset_rows = {}
+    bh, s_kv, s_q, hd, offsets = K6_OFFSET
+    for dt, (qf, kf, vf) in k6_offset_inputs.items():
+        hw = dict(HW, peak_flops=PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS)
+        for off in offsets:
+            q = qf[:, off:off + s_q].contiguous()
+            mask = (torch.arange(s_kv, device=dev)[None, :]
+                    <= off + torch.arange(s_q, device=dev)[:, None])
+            flops, nb = k6_offset_cost(bh, s_kv, s_q, hd, off, qf.element_size())
+            roof = kernel_roofline(flops, nb, hw=hw)
+            offset_rows[f"{dt} offset={off}"] = dict(
+                ms=timed(lambda q=q, kf=kf, vf=vf, o=off: FA.flash_attention(
+                    q, kf, vf, causal=True, q_offset=o), reps),
+                bound_ms=roof.roofline_s * 1e3,
+                bound_by="operations" if roof.bound == "compute" else "bytes",
+                library_ms=timed(lambda q=q, kf=kf, vf=vf, mask=mask:
+                                 torch.nn.functional.scaled_dot_product_attention(
+                                     q[None], kf[None], vf[None], attn_mask=mask), reps),
+                flops=flops, bytes=nb, shape=dict(q=[bh, s_q, hd], kv=[bh, s_kv, hd]),
+                q_offset=off, dtype=dt)
     rows["flash_attention"] = dict(
         k6_rows.pop("a causal=True"),
         plain_ms=timed(lambda: FA.flash_attention_plain(qa, ka, va, True), plain_reps),
         library_ms=timed(sdpa, reps),
         library_max_abs_dev=max_err(sdpa().float(), FA.flash_attention(qa, ka, va, True).float()),
-        causal=True, others=k6_rows)
+        causal=True, others=k6_rows, offset=offset_rows)
     for key, row in rows.items():
         row["launches_on_paths"] = path_count(key)
     emit("times", size=n, reps=reps, plain_reps=plain_reps, rows=rows,

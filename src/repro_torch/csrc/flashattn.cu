@@ -1,13 +1,16 @@
 // Flash attention (kernel K6): softmax attention with an online softmax,
 // optionally causal, on (BH, S, hd) tensors with the heads folded into the
-// leading dimension (MHA: K and V have as many heads as Q).
+// leading dimension (MHA: K and V have as many heads as Q). The queries may
+// be a block of rows of a longer sequence: (BH, S_q, hd) queries at
+// positions q_offset .. against (BH, S_kv, hd) keys, as the sequence-parallel
+// prefill gives them (S_q = S_kv, q_offset = 0 is self-attention).
 //
 // Replaces the Pallas kernel `flash_attention_pallas`
 // (src/repro/kernels/flashattn/flashattn.py:72, body `_flash_body` at :37),
 // and computes what it computes:
 //   s = fp32(q) fp32(k)^T scaled by fp32(1/sqrt(hd))  (fp32; the TPU kernel
 //       and the fp32 kernel scale q first, the bf16 kernel the scores)
-//   causal: s = -1e30 where the key position exceeds the query position
+//   causal: s = -1e30 where the key position exceeds q_offset + the query's
 //   online softmax over key tiles: m, l and acc in fp32,
 //     m' = max(m, max s); p = exp(s - m'); c = exp(m - m');
 //     l' = l c + sum p;   acc' = acc c + p fp32(v)
@@ -62,10 +65,14 @@
 //   memory (transposed) and each thread adds p v into its 4 rows x hd/16
 //   columns of acc, which stays in registers.
 //
-// Both: causal CTAs stop at the diagonal tile (key tiles above it are fully
-// masked, and skipping them is exact because the first tile always holds key
-// 0, so m is finite before any masked tile), and CTAs are issued heaviest
-// (last) query tile first.
+// Both kernels are instantiated twice: for self-attention (S_kv = S_q and
+// offset 0 fixed at compile time, so its code is the self-attention
+// kernel's) and for queries at an offset. Both: causal CTAs stop at the key
+// tile that holds their last query's diagonal (key tiles past it are fully
+// masked, and skipping them is exact because the first tile always holds
+// key 0, so m is finite before any masked tile), and CTAs are issued
+// heaviest (last) query tile first. Only the tiles that reach past a
+// query's diagonal or past S_kv pay for the mask.
 //
 // Left out, for later work: wgmma with TMA-fed tiles and mbarriers in
 // warp-specialised producer/consumer warpgroups (FA3's shape; the split of p
@@ -111,11 +118,17 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * HD * kLd + kTile * HD + kTile * kLd);
 }
 
-template <typename T, int HD>
+// kRect: queries at an offset of a longer key sequence; without it S_kv is
+// S_q and the offset 0 at compile time (the self-attention kernel).
+template <typename T, int HD, bool kRect>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int bh, int s_len, int causal, float scale) {
+                       int bh, int s_len, int s_kv, int q_offset, int causal, float scale) {
+  if constexpr (!kRect) {
+    s_kv = s_len;
+    q_offset = 0;
+  }
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [HD][kLd]   q' transposed
   float* kt = qt + HD * kLd;                    // [HD][kLd]   k tile transposed
@@ -131,9 +144,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = n_tiles - 1 - static_cast<int>(blockIdx.x / bh);
   const int q0 = qi * kTile;
   const long long head = static_cast<long long>(b) * s_len * HD;
+  const long long kv_head = static_cast<long long>(b) * s_kv * HD;
   const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
+  const T* kh = k + kv_head;
+  const T* vh = v + kv_head;
 
   for (int idx = tid; idx < kTile * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
@@ -152,14 +166,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  const int kv_tiles = causal ? qi + 1 : n_tiles;
+  const int n_kv_tiles = (s_kv + kTile - 1) / kTile;
+  const int last_key = q_offset + min(q0 + kTile, s_len) - 1;  // the tile's last query
+  const int kv_tiles = !causal ? n_kv_tiles
+                       : kRect ? min(last_key / kTile + 1, n_kv_tiles) : qi + 1;
   for (int t = 0; t < kv_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's reads of kt, vs and pt are done
     for (int idx = tid; idx < kTile * HD; idx += kThreads) {
       const int r = idx / HD, d = idx % HD;
       const int pos = k0 + r;
-      const bool in = pos < s_len;
+      const bool in = pos < s_kv;
       const long long g = static_cast<long long>(pos) * HD + d;
       kt[d * kLd + r] = in ? to_f32(kh[g]) : 0.0f;
       vs[r * HD + d] = in ? to_f32(vh[g]) : 0.0f;
@@ -185,11 +202,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int qpos = q_offset + q0 + 4 * ty + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + 4 * tx + j;
-        if (kpos >= s_len || (causal && kpos > qpos)) s[i][j] = kMasked;
+        if (kpos >= s_kv || (causal && kpos > qpos)) s[i][j] = kMasked;
       }
       float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -244,19 +261,30 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int s_len, int causal, float scale, cudaStream_t stream) {
+template <typename T, int HD, bool kRect>
+int launch_as(const void* q, const void* k, const void* v, void* out, int bh,
+              int s_len, int s_kv, int q_offset, int causal, float scale,
+              cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, kRect>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
-  flash_attention_kernel<T, HD><<<n_tiles * static_cast<unsigned>(bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), bh, s_len, causal, scale);
+  flash_attention_kernel<T, HD, kRect>
+      <<<n_tiles * static_cast<unsigned>(bh), kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(out), bh, s_len, s_kv, q_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int bh,
+           int s_len, int s_kv, int q_offset, int causal, float scale, cudaStream_t stream) {
+  if (s_kv == s_len && q_offset == 0)
+    return launch_as<T, HD, false>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale,
+                                   stream);
+  return launch_as<T, HD, true>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,13 +380,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int HD>
+// kRect as in the fp32 kernel.
+template <int HD, bool kRect>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out, int bh, int s_len,
-                            int causal, float scale_log2) {
+                            int s_kv, int q_offset, int causal, float scale_log2) {
+  if constexpr (!kRect) {
+    s_kv = s_len;
+    q_offset = 0;
+  }
   using C = Cfg<HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kLd]
@@ -366,14 +399,19 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // accumulator row group, column pair
-  const int n_tiles = (s_len + kKeys - 1) / kKeys;
+  const int n_tiles = (s_len + kRows - 1) / kRows;
   const int b = blockIdx.x % bh;
   const int qi = n_tiles - 1 - static_cast<int>(blockIdx.x / bh);
   const int q0 = qi * kRows;
   const long long head = static_cast<long long>(b) * s_len * HD;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
-  const int kv_tiles = causal ? qi + 1 : n_tiles;
+  const long long kv_head = static_cast<long long>(b) * s_kv * HD;
+  const __nv_bfloat16* kh = k + kv_head;
+  const __nv_bfloat16* vh = v + kv_head;
+  const int n_kv_tiles = (s_kv + kKeys - 1) / kKeys;
+  const int first_key = q_offset + q0;                          // the tile's first query
+  const int last_key = q_offset + min(q0 + kRows, s_len) - 1;  // and its last
+  const int kv_tiles = !causal ? n_kv_tiles
+                       : kRect ? min(last_key / kKeys + 1, n_kv_tiles) : qi + 1;
 
   // cp.async groups: 0 = the q tile, then one per K/V tile (possibly empty).
   load_tile<HD>(sq, q + head, q0, s_len, tid);
@@ -381,8 +419,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int st = 0; st < C::kStages - 1; ++st) {
     if (st < kv_tiles) {
-      load_tile<HD>(skv + 2 * st * C::kTile, kh, st * kKeys, s_len, tid);
-      load_tile<HD>(skv + (2 * st + 1) * C::kTile, vh, st * kKeys, s_len, tid);
+      load_tile<HD>(skv + 2 * st * C::kTile, kh, st * kKeys, s_kv, tid);
+      load_tile<HD>(skv + (2 * st + 1) * C::kTile, vh, st * kKeys, s_kv, tid);
     }
     cp_async_commit();
   }
@@ -403,7 +441,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
   // rows r = 0 (row g of the warp) and r = 1 (row g + 8); m in log2 units
   float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};
-  const int row0 = q0 + warp * 16 + g;
+  const int row0 = q_offset + q0 + warp * 16 + g;
 
   for (int t = 0; t < kv_tiles; ++t) {
     cp_async_wait<C::kStages - 2>();  // tile t has landed
@@ -412,8 +450,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int nt = t + C::kStages - 1;
       if (nt < kv_tiles) {
         const int st = nt % C::kStages;
-        load_tile<HD>(skv + 2 * st * C::kTile, kh, nt * kKeys, s_len, tid);
-        load_tile<HD>(skv + (2 * st + 1) * C::kTile, vh, nt * kKeys, s_len, tid);
+        load_tile<HD>(skv + 2 * st * C::kTile, kh, nt * kKeys, s_kv, tid);
+        load_tile<HD>(skv + (2 * st + 1) * C::kTile, vh, nt * kKeys, s_kv, tid);
       }
       cp_async_commit();
     }
@@ -438,16 +476,17 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // mask the diagonal and the ragged tile (only those pay for it)
+    // mask the tiles that reach past a query's diagonal or past S_kv (only
+    // those pay for it)
     const int k0 = t * kKeys;
-    if (k0 + kKeys > s_len || (causal && t == qi)) {
+    if (k0 + kKeys > s_kv || (causal && (kRect ? k0 + kKeys - 1 > first_key : t == qi))) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + 2 * t4 + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          if (key >= s_len || (causal && key > row)) s[j][e] = kMasked;
+          if (key >= s_kv || (causal && key > row)) s[j][e] = kMasked;
         }
     }
 
@@ -534,52 +573,65 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int s_len,
-           int causal, float scale, cudaStream_t stream) {
+template <int HD, bool kRect>
+int launch_as(const void* q, const void* k, const void* v, void* out, int bh, int s_len,
+              int s_kv, int q_offset, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Cfg<HD>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, kRect>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned n_tiles = static_cast<unsigned>((s_len + kRows - 1) / kRows);
-  flash_attention_bf16_kernel<HD><<<n_tiles * static_cast<unsigned>(bh), kThreads, smem,
-                                    stream>>>(
+  flash_attention_bf16_kernel<HD, kRect><<<n_tiles * static_cast<unsigned>(bh), kThreads,
+                                           smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), bh, s_len,
-      causal, scale * kLog2e);
+      s_kv, q_offset, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int bh, int s_len,
+           int s_kv, int q_offset, int causal, float scale, cudaStream_t stream) {
+  if (s_kv == s_len && q_offset == 0)
+    return launch_as<HD, false>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, stream);
+  return launch_as<HD, true>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, stream);
 }
 
 }  // namespace bf16tc
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int s_len, int hd, int causal, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int s_len,
+             int s_kv, int q_offset, int hd, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<T, 64>(q, k, v, out, bh, s_len, causal, scale, st);
-  if (hd == 128) return launch<T, 128>(q, k, v, out, bh, s_len, causal, scale, st);
+  if (hd == 64) return launch<T, 64>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, st);
+  if (hd == 128)
+    return launch<T, 128>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_bf16(const void* q, const void* k, const void* v, void* out, int bh,
-                  int s_len, int hd, int causal, float scale, void* stream) {
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out, int bh, int s_len,
+                  int s_kv, int q_offset, int hd, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return bf16tc::launch<64>(q, k, v, out, bh, s_len, causal, scale, st);
-  if (hd == 128) return bf16tc::launch<128>(q, k, v, out, bh, s_len, causal, scale, st);
+  if (hd == 64)
+    return bf16tc::launch<64>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, st);
+  if (hd == 128)
+    return bf16tc::launch<128>(q, k, v, out, bh, s_len, s_kv, q_offset, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// s_len: query rows (S_q); s_kv: keys; q_offset: the first query's position
+// among the keys.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   int bh, int s_len, int hd, int causal, float scale,
-                                   void* stream) {
-  return dispatch<float>(q, k, v, out, bh, s_len, hd, causal, scale, stream);
+                                   int bh, int s_len, int s_kv, int q_offset, int hd,
+                                   int causal, float scale, void* stream) {
+  return dispatch<float>(q, k, v, out, bh, s_len, s_kv, q_offset, hd, causal, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int bh, int s_len, int hd, int causal, float scale,
-                                    void* stream) {
-  return dispatch_bf16(q, k, v, out, bh, s_len, hd, causal, scale, stream);
+                                    int bh, int s_len, int s_kv, int q_offset, int hd,
+                                    int causal, float scale, void* stream) {
+  return dispatch_bf16(q, k, v, out, bh, s_len, s_kv, q_offset, hd, causal, scale, stream);
 }

@@ -99,6 +99,8 @@ def _rank_main(rank: int, fn: Callable, nprocs: int, args: Sequence, init: str,
     try:
         out = fn(rank, nprocs, *args)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        # no rank tears its connections down while a peer still uses them
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

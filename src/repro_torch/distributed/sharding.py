@@ -24,6 +24,17 @@ Trees are the port's nested dicts (and lists) of tensors in the JAX layout;
 a leaf's path is its keys joined by ``/``, as ``_path_str`` gives them in
 JAX. :func:`shard` and :func:`gather` move a full tensor to a rank's block
 of a spec and back over the mesh's groups.
+
+Activations (JAX's four constraint hooks, each here a function from an
+activation's shape to the spec it asks for): the residual stream between
+layer bodies (:func:`residual_constraint`: batch over the data axes, the
+sequence over ``model`` where it divides); q, k and v
+(:func:`qkv_constraint`: head-parallel when the KV heads split over
+``model``, else q's sequence over ``model`` with K/V whole); the SSM's
+projection (:func:`ssm_inner_constraint`: its width over ``model``, the
+sequence local); the dispatched MoE tensors (:func:`expert_constraint`:
+experts over ``model``). ``repro_torch.distributed.tp`` computes on those
+layouts: each rank of a model group computes on its blocks.
 """
 
 from __future__ import annotations
@@ -204,6 +215,60 @@ def cache_specs(cache_tree, mesh):
         return P(*spec)
 
     return _map_with_path(one, cache_tree)
+
+
+def residual_constraint(mesh) -> Callable[[Sequence[int]], P]:
+    """The residual stream's spec at a layer boundary, (B, S, D) -> spec:
+    the sequence over ``model`` where it divides (Megatron-SP), else whole
+    on every rank of a model group. JAX's ``REPRO_RESIDUAL_SEQ=0`` (always
+    whole) serves its dry-run, which is not ported."""
+
+    def spec(shape):
+        return P(_dp_entry(mesh, shape[0]), _seq_entry(mesh, shape[1]), None)
+
+    return spec
+
+
+def qkv_constraint(mesh) -> Callable[[Sequence[int], Sequence[int]], Tuple[P, P]]:
+    """Attention's layout (train and prefill), q (B, S, KV, G, hd) and k / v
+    (B, S, KV, hd) shapes -> (q spec, k and v spec): head-parallel when the
+    KV heads split over ``model`` (q, k, v on the KV-head dim, the sequence
+    whole), else sequence-parallel (q's sequence over ``model``, K/V whole:
+    gathered once per layer)."""
+    msize = axis_size(mesh, "model")
+
+    def spec(q_shape, k_shape):
+        b, _, kvh, _ = k_shape
+        dp = _dp_entry(mesh, b)
+        if msize > 1 and kvh % msize == 0 and kvh >= msize:
+            return P(dp, None, "model", None, None), P(dp, None, "model", None)
+        return P(dp, _seq_entry(mesh, q_shape[1]), None, None, None), P(dp, None, None, None)
+
+    return spec
+
+
+def ssm_inner_constraint(mesh) -> Callable[[Sequence[int]], P]:
+    """The SSM projection (B, S, W)'s spec: W over ``model`` when it
+    divides, the sequence local."""
+    msize = axis_size(mesh, "model")
+
+    def spec(shape):
+        w = "model" if (msize > 1 and shape[-1] % msize == 0) else None
+        return P(_dp_entry(mesh, shape[0]), None, w)
+
+    return spec
+
+
+def expert_constraint(mesh) -> Callable[[Sequence[int]], P]:
+    """The dispatched MoE tensors (E, G, C, D)'s spec: experts over
+    ``model`` when they divide, groups over the data axes."""
+    msize = axis_size(mesh, "model")
+
+    def spec(shape):
+        e = "model" if (msize > 1 and shape[0] % msize == 0) else None
+        return P(e, _dp_entry(mesh, shape[1]), None, None)
+
+    return spec
 
 
 def logits_spec(mesh, batch: int, vocab: int) -> P:

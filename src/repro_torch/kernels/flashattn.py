@@ -1,5 +1,8 @@
 """Flash attention (kernel K6): softmax attention with an online softmax,
-optionally causal, on ``(BH, S, hd)`` with the heads folded (MHA).
+optionally causal, on ``(BH, S, hd)`` with the heads folded (MHA). The
+queries may be a block of rows of a longer sequence: ``(BH, S_q, hd)`` at
+positions ``q_offset ..`` against ``(BH, S_kv, hd)`` keys (the causal mask
+is ``key <= q_offset + query``): the sequence-parallel prefill's layout.
 
 Port of ``repro.kernels.flashattn`` (``flashattn.flash_attention_pallas``,
 ``ops.flash_attention``, ``ref.attention`` and ``hbm_traffic_model``).
@@ -25,23 +28,25 @@ HEAD_DIMS = (64, 128)
 MASKED = -1e30
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_void_p)
 _SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False) -> torch.Tensor:
+                          causal: bool = False, q_offset: int = 0) -> torch.Tensor:
     """The TPU kernel's arithmetic in one block: q cast to fp32 and scaled by
-    fp32(1/sqrt(hd)), scores in fp32, -1e30 where masked, fp32 P.V over
-    ``max(l, 1e-30)``, the result in q's dtype. (An online softmax over key
-    chunks gives the same function: masked scores add exp(-1e30 - m) = 0.)"""
+    fp32(1/sqrt(hd)), scores in fp32, -1e30 where masked (``key > q_offset +
+    query``), fp32 P.V over ``max(l, 1e-30)``, the result in q's dtype. (An
+    online softmax over key chunks gives the same function: masked scores
+    add exp(-1e30 - m) = 0.)"""
     s_len, hd = q.shape[-2:]
     qs = q.float() * (1.0 / math.sqrt(hd))
     s = qs @ k.float().transpose(-1, -2)
     if causal:
-        pos = torch.arange(s_len, device=q.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], MASKED)
+        qpos = q_offset + torch.arange(s_len, device=q.device)
+        kpos = torch.arange(k.shape[-2], device=q.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], MASKED)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -61,10 +66,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p @ v.float()).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_attention takes q, k, v of one shape (BH, S, hd), got "
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
+    if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or k.shape[0] != q.shape[0]
+            or k.shape[2] != q.shape[2]):
+        raise ValueError("flash_attention takes q (BH, S_q, hd) and k, v (BH, S_kv, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q_offset < 0 or q_offset + q.shape[1] > k.shape[1]:
+        raise ValueError(f"queries at {q_offset} .. {q_offset + q.shape[1]} lie outside the "
+                         f"{k.shape[1]} keys")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -75,20 +84,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
-    """(BH, S, hd) MHA attention, fp32 or bf16, output in q's dtype. On the
+                    causal: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """(BH, S_q, hd) MHA attention against (BH, S_kv, hd) keys, the queries
+    at positions ``q_offset ..`` (S_q = S_kv and 0: self-attention), fp32 or
+    bf16, output in q's dtype. On the
     card K6 takes hd 64 or 128 and contiguous tensors of one dtype (bf16 ones
     16-byte aligned: the kernel copies 16-byte chunks); it raises on anything
     else. K6 has no backward: where autograd records through q, k or v it
     raises, on any device, rather than return a result without a gradient
     (the training forward takes ``models.attention.blockwise_attention``)."""
-    _check(q, k, v)
+    _check(q, k, v, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention (K6) has no backward; differentiate "
                            "models.attention.blockwise_attention instead")
     if q.device.type == "cpu":
         counts.bump("plain:flash_attention")
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     bh, s_len, hd = q.shape
@@ -102,8 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library("flashattn", _SIGNATURES)
     fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_len, hd,
-                int(bool(causal)), 1.0 / math.sqrt(hd),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_len,
+                k.shape[1], int(q_offset), hd, int(bool(causal)), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     counts.bump("flash_attention")

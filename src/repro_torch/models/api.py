@@ -24,6 +24,12 @@ adds ``targets`` of the tokens' shape (int32 or int64):
   vlm       : {"patches": (B,P,D), "tokens": (B,S-P)}
 Decode: tokens (B,1) + cache + int position. Inference runs under
 ``torch.inference_mode``.
+
+``loss``, ``prefill`` and ``decode_step`` run on a model group (``ctx``,
+``repro_torch.distributed.tp.context``; one rank's by default): on a mesh
+with a ``model`` axis (the steps of ``repro_torch.train.steps``) they take
+the rank's blocks of the params (and of the decode cache) and split their
+work over the group.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 
 from .. import device as _device
+from ..distributed import tp
 from . import layers as L
 from . import transformer as T
 
@@ -140,21 +147,21 @@ def _stack(trees: list):
     return torch.stack([t.detach() for t in trees])
 
 
-def layers_from_tree(tree: Mapping, cfg) -> Params:
+def layers_from_tree(tree: Mapping, cfg, ctx=tp.ONE) -> Params:
     """The port's per-layer params tree (``Model.params()``'s layout) of a
     params tree of tensors in the JAX layout, where each decoder (and
     encoder) segment's leaves are stacked over its repeats
     (``decoder.seg0.sub0.mixer.wq.w`` of shape ``(n_rep, d_in, d_out)``);
     the layers are views of the stacked leaves, so a gradient reaches them.
     The SSM leaves ``A_log``, ``D`` and ``dt_bias`` are fp32 in any model,
-    as in JAX."""
+    as in JAX. On a model group (``ctx``) the leaves are the rank's blocks."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     if ("unembed" in tree) == bool(cfg.tie_embeddings):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the params "
                          f"{'have' if 'unembed' in tree else 'lack'} an unembed table")
     rows = tree["embed"]["table"].shape[0]
-    if rows != cfg.vocab_padded:
+    if rows != cfg.vocab_padded and rows * ctx.size != cfg.vocab_padded:
         raise ValueError(f"embedding has {rows} rows, expected vocab_padded "
                          f"{cfg.vocab_padded} (vocab {cfg.vocab_size})")
     if ("encoder" in tree) != bool(cfg.is_encdec):
@@ -257,79 +264,107 @@ class Model(nn.Module):
     # forward pieces
     # ------------------------------------------------------------------
 
-    def _encode(self, p: Params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, p: Params, frames: torch.Tensor, ctx) -> torch.Tensor:
+        """The encoder states (B, S_enc, D), whole on every rank of the model
+        group; the layers run on the residual layout."""
         cfg, cd = self.cfg, self.compute_dtype
         x = frames.to(device=self.dev, dtype=cd)
         x = x + _sinusoidal(x.shape[1], cfg.d_model, cd, self.dev)[None]
+        lay = tp.layout(ctx, x.shape[1])
+        x = tp.from_whole(x, lay)
         for layer in p["encoder"]["seg0"]["sub0"]:
             x = L.remat(lambda h, layer=layer: T.sublayer_apply(
-                layer, cfg, ("attn", "dense"), h, cd, causal=False)[0], x)
-        return L.norm_apply(p["enc_norm"], x, cfg.norm_eps, cd)
+                layer, cfg, ("attn", "dense"), h, cd, causal=False, lay=lay)[0], x)
+        x = L.norm_apply(L.norm_whole(p["enc_norm"], cfg.d_model, ctx), x, cfg.norm_eps, cd)
+        return tp.to_whole(x, lay)
 
-    def _embed_inputs(self, p: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def _forward(self, p: Params, batch: Mapping[str, torch.Tensor], ctx):
+        """The decoder stack: the inputs embedded (vocab-parallel on a model
+        group), the residual in ``sharding.residual_constraint``'s layout
+        between layer bodies; -> (the whole sequence before the final norm,
+        the summed MoE aux losses)."""
         cfg, cd = self.cfg, self.compute_dtype
-        x = L.embed(p["embed"], batch["tokens"].to(self.dev), cd)
+        enc = self._encode(p, batch["frames"], ctx) if cfg.is_encdec else None
+        x = L.embed(p["embed"], batch["tokens"].to(self.dev), cd, cfg.vocab_padded, ctx)
         if cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(device=self.dev, dtype=cd), x], dim=1)
         if cfg.is_encdec:
             x = x + _sinusoidal(x.shape[1], cfg.d_model, cd, self.dev)[None]
-        return x
+        lay = tp.layout(ctx, x.shape[1])
+        x, aux = T.stack_apply(p["decoder"], cfg, tp.from_whole(x, lay), cd, causal=True,
+                               enc_states=enc, lay=lay)
+        return tp.to_whole(x, lay), aux
 
-    def _logits(self, p: Params, x) -> torch.Tensor:
+    def _logits(self, p: Params, x, ctx, whole: bool = True) -> torch.Tensor:
+        """The final norm and the logits of x: this rank's vocab columns
+        (``L.unembed``), all-gathered over the group when ``whole``."""
         cfg = self.cfg
-        x = L.norm_apply(p["final_norm"], x, cfg.norm_eps, self.compute_dtype)
+        x = L.norm_apply(L.norm_whole(p["final_norm"], cfg.d_model, ctx), x, cfg.norm_eps,
+                         self.compute_dtype)
         table = p["embed"]["table"] if cfg.tie_embeddings else p["unembed"]["table"]
-        return L.unembed(table, x, self.compute_dtype)
+        logits = L.unembed(table, x, self.compute_dtype, cfg.vocab_padded, ctx)
+        if whole and logits.shape[-1] < cfg.vocab_padded:
+            logits = tp.all_gather(logits, -1, ctx)
+        return logits
 
     # ------------------------------------------------------------------
     # public: loss / prefill / decode
     # ------------------------------------------------------------------
 
-    def loss(self, batch: Mapping[str, torch.Tensor], params: Optional[Params] = None):
+    def loss(self, batch: Mapping[str, torch.Tensor], params: Optional[Params] = None,
+             ctx=tp.ONE):
         """(total, {"xent": ..., "aux": ...}) of a train batch: the mean fp32
         cross entropy of ``targets`` (over the text positions for vlm; the
         encoder runs first for encdec) plus ``MOE_AUX_COEFF`` x the summed
         MoE load-balance losses. ``params`` is a params tree in the JAX
         layout (the train state's), whose leaves autograd differentiates;
         by default the model's own (frozen) weights. Self-attention takes the
-        blockwise path where autograd records, K6 elsewhere."""
-        cfg, cd = self.cfg, self.compute_dtype
-        p = self.params() if params is None else layers_from_tree(params, cfg)
-        enc = self._encode(p, batch["frames"]) if cfg.is_encdec else None
-        x = self._embed_inputs(p, batch)
-        x, aux = T.stack_apply(p["decoder"], cfg, x, cd, causal=True, enc_states=enc)
+        blockwise path where autograd records, K6 elsewhere. On a model group
+        (``ctx``) ``params`` are the rank's blocks and the loss is whole on
+        every rank (vocab-parallel cross entropy where the vocabulary
+        splits)."""
+        cfg = self.cfg
+        p = self.params() if params is None else layers_from_tree(params, cfg, ctx)
+        x, aux = self._forward(p, batch, ctx)
         if cfg.family == "vlm":  # loss over the text positions only
             x = x[:, batch["patches"].shape[1]:]
-        logits = self._logits(p, x)
-        xent = L.softmax_xent(logits, batch["targets"].to(self.dev), cfg.vocab_size)
-        total = xent + MOE_AUX_COEFF * aux
-        return total, {"xent": xent, "aux": aux}
+        logits = self._logits(p, x, ctx, whole=False)
+        targets = batch["targets"].to(self.dev)
+        if logits.shape[-1] < cfg.vocab_padded:
+            xent = L.softmax_xent_tp(logits, tp.span(ctx, cfg.vocab_padded)[0], targets,
+                                     cfg.vocab_size, ctx)
+        else:
+            xent = L.softmax_xent(logits, targets, cfg.vocab_size)
+        return xent + MOE_AUX_COEFF * aux, {"xent": xent, "aux": aux}
 
     @torch.inference_mode()
-    def prefill(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def prefill(self, batch: Mapping[str, torch.Tensor], params: Optional[Params] = None,
+                ctx=tp.ONE) -> torch.Tensor:
         """Forward over the prompt (``tokens``, with ``frames`` for encdec or
         ``patches`` for vlm); returns the last position's logits over the
-        padded vocabulary, (B, 1, V_padded)."""
-        p = self.params()
-        enc = self._encode(p, batch["frames"]) if self.cfg.is_encdec else None
-        x = self._embed_inputs(p, batch)
-        x, _ = T.stack_apply(p["decoder"], self.cfg, x, self.compute_dtype, causal=True,
-                             enc_states=enc)
-        return self._logits(p, x[:, -1:])
+        padded vocabulary, (B, 1, V_padded), whole on every rank of the
+        model group. ``params``: a params tree in the JAX layout (on a model
+        group, ``ctx``, the rank's blocks); by default the model's own."""
+        p = self.params() if params is None else layers_from_tree(params, self.cfg, ctx)
+        x, _ = self._forward(p, batch, ctx)
+        return self._logits(p, x[:, -1:], ctx)
 
     @torch.inference_mode()
-    def decode_step(self, cache: Params, tokens: torch.Tensor, position: int):
+    def decode_step(self, cache: Params, tokens: torch.Tensor, position: int,
+                    params: Optional[Params] = None, ctx=tp.ONE, cache_lens=None):
         """One token per request at ``position``: (logits (B,1,V_padded),
-        cache), the cache updated in place."""
-        cfg = self.cfg
-        p = self.params()
-        x = L.embed(p["embed"], tokens.to(self.dev), self.compute_dtype)
+        cache), the cache updated in place. ``params`` as in :meth:`prefill`;
+        on a model group the cache holds the rank's blocks
+        (``sharding.cache_specs``) of a cache of ``cache_lens`` (self, cross)
+        slots, and the logits are whole on every rank."""
+        cfg, cd = self.cfg, self.compute_dtype
+        p = self.params() if params is None else layers_from_tree(params, cfg, ctx)
+        x = L.embed(p["embed"], tokens.to(self.dev), cd, cfg.vocab_padded, ctx)
         if cfg.is_encdec:
-            x = x + _sinusoidal_at(position, cfg.d_model, self.compute_dtype,
-                                   self.dev)[None, None, :]
-        x, cache = T.stack_decode(p["decoder"], cfg, x, cache, int(position),
-                                  self.compute_dtype, has_cross=cfg.is_encdec)
-        return self._logits(p, x), cache
+            x = x + _sinusoidal_at(position, cfg.d_model, cd, self.dev)[None, None, :]
+        x, cache = T.stack_decode(p["decoder"], cfg, x, cache, int(position), cd,
+                                  has_cross=cfg.is_encdec, ctx=ctx, cache_lens=cache_lens)
+        return self._logits(p, x, ctx), cache
 
     @torch.inference_mode()
     def make_cache(self, batch: int, seq: int) -> Params:

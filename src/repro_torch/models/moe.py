@@ -21,6 +21,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
+from ..distributed import tp
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -90,17 +92,20 @@ def aux_loss(r: Routing, n_experts: int) -> torch.Tensor:
     return n_experts * torch.mean(frac * r.probs.mean(dim=1))
 
 
-def dispatch(r: Routing, xg: torch.Tensor, compute_dtype):
+def dispatch(r: Routing, xg: torch.Tensor, compute_dtype, experts_range=None):
     """(expert inputs (e, g, c, d), combine tensor (g, s, e, c)), the one-hot
-    tensors built in the compute dtype (exact for 0/1)."""
+    tensors built in the compute dtype (exact for 0/1); only experts
+    ``[lo, hi)`` when ``experts_range`` gives them."""
     _, group, k, e = r.onehot.shape
     cap = _capacity(group, k, e)
     onehot = r.onehot.to(compute_dtype)
+    top_p = (r.top_p * r.keep).to(compute_dtype)[..., None]
+    if experts_range is not None:
+        onehot = onehot[..., experts_range[0]:experts_range[1]]
     cap_oh = _one_hot(r.pos.long(), cap, compute_dtype)           # (g, s, k, c)
     keep_c = r.keep.to(compute_dtype)
     disp = torch.einsum("gske,gskc->gsec", onehot, cap_oh * keep_c[..., None])
-    comb = torch.einsum("gske,gskc->gsec",
-                        (r.top_p * r.keep).to(compute_dtype)[..., None] * onehot, cap_oh)
+    comb = torch.einsum("gske,gskc->gsec", top_p * onehot, cap_oh)
     xin = torch.einsum("gsec,gsd->egcd", disp, xg.to(compute_dtype))
     return xin, comb
 
@@ -118,20 +123,41 @@ def combine(comb: torch.Tensor, y_e: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gsec,egcd->gsd", comb, y_e)
 
 
-def moe_block(p: Params, cfg, x: torch.Tensor, compute_dtype
+def moe_block(p: Params, cfg, h: torch.Tensor, compute_dtype, lay=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss). B*S must be a multiple of
-    min(GROUP_SIZE, B*S), as in JAX."""
-    b, s, d = x.shape
+    """h: (B, S, D) in the residual layout ``lay`` (one rank's by default)
+    -> (out, aux_loss), with ``sharding.expert_constraint``'s layout. B*S
+    must be a multiple of min(GROUP_SIZE, B*S), as in JAX. Routing, capacity
+    and the aux loss run on the whole sequence on every rank of a model
+    group (the 128-token groups are token-major over B*S: routing a block of
+    rows would regroup the tokens and move the drops); each rank dispatches
+    to its experts and runs them (its stored blocks), its share of the
+    combine and the shared experts' Megatron pair are summands, and one
+    reduction completes them."""
+    lay = lay or tp.layout(tp.ONE, h.shape[1])
+    ctx, cd = lay.ctx, compute_dtype
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    x = tp.to_whole(h, lay)
+    b, s, _ = x.shape
     tokens = b * s
     group = min(GROUP_SIZE, tokens)
     if tokens % group:
         raise ValueError(f"moe_block groups {tokens} tokens by {group}: B*S must be a "
                          f"multiple of {group}")
     xg = x.reshape(tokens // group, group, d)
-    r = route(p, cfg, xg, compute_dtype)
-    xin, comb = dispatch(r, xg, compute_dtype)
-    out = combine(comb, experts(p, xin, compute_dtype))
+    r = route({"router": {"w": tp.whole(p["router"]["w"], (d, e), ctx)}}, cfg, xg, cd)
+    cap = _capacity(group, cfg.top_k, e)
+    split_e = shd.expert_constraint(ctx.mesh)((e, tokens // group, cap, d))[0] == "model"
+    lo, hi = tp.span(ctx, e) if split_e else (0, e)
+    xin, comb = dispatch(r, xg, cd, (lo, hi))
+    w = {n: tp.take(p[n], (e, d, f) if n != "down" else (e, f, d), ctx, 0, lo, hi)
+         for n in ("gate", "up", "down")}
+    out = combine(comb, experts(w, xin, cd))
+    if hi - lo == e:
+        out = L.as_partial(out, ctx)
     if "shared" in p:
-        out = out + L.mlp(p["shared"], xg, "silu", compute_dtype)
-    return out.reshape(b, s, d), aux_loss(r, cfg.n_experts).float()
+        fs = cfg.n_shared_experts * f
+        s_lo, s_hi = tp.span(ctx, fs)
+        sh = L.mlp_partial(p["shared"], xg, "silu", d, fs, s_lo, s_hi, cd, ctx)
+        out = out + (sh if s_hi - s_lo < fs else L.as_partial(sh, ctx))
+    return tp.from_partial(out.reshape(b, s, d), lay), aux_loss(r, e).float()

@@ -13,6 +13,12 @@ body is recomputed in backward, and so is each MoE block inside it (JAX's
 
 Layer signature: (mixer, mlp) with mixer in {"attn", "ssm"} and mlp in
 {"dense", "moe", "none"}.
+
+A layer takes the residual stream in the layout
+``sharding.residual_constraint`` gives it on its model group (a
+``tp.Layout`` of ``repro_torch.distributed.tp``; one rank's holds the whole
+sequence) and returns it in the same one; each mixer and MLP splits its
+work over the group by its own rule.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ..distributed import tp
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -89,27 +96,31 @@ def make_sublayer(gen, cfg, sig: Sig, dtype, device, cross: bool = False) -> Par
 
 
 def sublayer_apply(p: Params, cfg, sig: Sig, x, compute_dtype, causal=True,
-                   enc_states=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer: (x, MoE aux loss, 0 for other layers)."""
+                   enc_states=None, lay=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (x, MoE aux loss, 0 for other layers). ``lay``: x's
+    residual layout (one rank's by default); norms on whole weights, the
+    mixer and the MLP by their rules."""
+    lay = lay or tp.layout(tp.ONE, x.shape[1])
     mixer, mlp_kind = sig
+    ctx, cd, d, eps = lay.ctx, compute_dtype, cfg.d_model, cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.norm_apply(p["norm1"], x, cfg.norm_eps, compute_dtype)
+    h = L.norm_apply(L.norm_whole(p["norm1"], d, ctx), x, eps, cd)
     if mixer == "attn":
-        h = A.self_attention(p["mixer"], cfg, h, compute_dtype, causal=causal)
+        h = A.self_attention(p["mixer"], cfg, h, cd, causal, lay)
     else:
-        h = S.ssm_block(p["mixer"], cfg, h, compute_dtype)
+        h = S.ssm_block(p["mixer"], cfg, h, cd, lay)
     x = x + h
     if "cross" in p and enc_states is not None:
-        h = L.norm_apply(p["norm_cross"], x, cfg.norm_eps, compute_dtype)
-        x = x + A.cross_attention(p["cross"], cfg, h, enc_states, compute_dtype)
+        h = L.norm_apply(L.norm_whole(p["norm_cross"], d, ctx), x, eps, cd)
+        x = x + A.cross_attention(p["cross"], cfg, h, enc_states, cd, lay.lo, ctx)
     if mlp_kind != "none":
-        h = L.norm_apply(p["norm2"], x, cfg.norm_eps, compute_dtype)
+        h = L.norm_apply(L.norm_whole(p["norm2"], d, ctx), x, eps, cd)
         if mlp_kind == "moe":
             # recompute the dispatch/combine one-hots in backward instead of
             # saving them (they dominate MoE activation memory)
-            h, aux = L.remat(lambda hh: M.moe_block(p["mlp"], cfg, hh, compute_dtype), h)
+            h, aux = L.remat(lambda hh: M.moe_block(p["mlp"], cfg, hh, cd, lay), h)
         else:
-            h = L.mlp(p["mlp"], h, cfg.act, compute_dtype)
+            h = L.mlp(p["mlp"], h, cfg.act, cd, cfg.d_ff or cfg.moe_d_ff, lay)
         x = x + h
     return x, aux
 
@@ -130,11 +141,13 @@ def make_stack(gen, cfg, dtype, device, cross: bool = False) -> Params:
     return p
 
 
-def stack_apply(p: Params, cfg, x, compute_dtype, causal=True, enc_states=None
+def stack_apply(p: Params, cfg, x, compute_dtype, causal=True, enc_states=None, lay=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer in order; returns (x, the sum of the MoE aux losses).
     Where autograd records, each repeat of a segment body is recomputed in
-    backward."""
+    backward. ``lay``: x's residual layout (one rank's by default; each
+    layer body returns the residual in it: ``sharding.residual_constraint``)."""
+    lay = lay or tp.layout(tp.ONE, x.shape[1])
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
         seg = p[f"seg{si}"]
@@ -143,7 +156,7 @@ def stack_apply(p: Params, cfg, x, compute_dtype, causal=True, enc_states=None
             def body(h, aux, seg=seg, sigs=sigs, r=r):
                 for j, sig in enumerate(sigs):
                     h, a = sublayer_apply(seg[f"sub{j}"][r], cfg, sig, h, compute_dtype,
-                                          causal=causal, enc_states=enc_states)
+                                          causal=causal, enc_states=enc_states, lay=lay)
                     aux = aux + a
                 return h, aux
 
@@ -178,34 +191,42 @@ def make_stack_cache(cfg, batch: int, seq: int, device, cross_seq: int = 0,
 
 
 def stack_decode(p: Params, cfg, x, cache, position: int, compute_dtype,
-                 has_cross: bool = False):
+                 has_cross: bool = False, ctx=tp.ONE, cache_lens=None):
     """One decode step through all layers; returns (x, cache). The K/V
-    buffers are written in place; an SSM layer's entry is replaced."""
+    buffers are written in place; an SSM layer's entry is replaced. On a
+    model group (``ctx``) the params and the cache are the rank's blocks and
+    ``cache_lens`` are the self- and cross-attention slots of the whole
+    cache (by default the cache's own)."""
+    cd, d, eps = compute_dtype, cfg.d_model, cfg.norm_eps
+    lay = tp.layout(ctx, 1)
+    self_len, cross_len = cache_lens or (None, None)
+
+    def norm(q, h):
+        return L.norm_apply(L.norm_whole(q, d, ctx), h, eps, cd)
+
     for si, (n_rep, sigs) in enumerate(segments(cfg)):
         seg_p, seg_c = p[f"seg{si}"], cache[f"seg{si}"]
         for r in range(n_rep):
             for j, (mixer, mlp_kind) in enumerate(sigs):
                 sp, sc = seg_p[f"sub{j}"][r], seg_c[f"sub{j}"][r]
-                hn = L.norm_apply(sp["norm1"], x, cfg.norm_eps, compute_dtype)
+                hn = norm(sp["norm1"], x)
                 if mixer == "attn":
-                    out, _ = A.decode_self_attention(
-                        sp["mixer"], cfg, hn, sc["self"] if has_cross else sc, position,
-                        compute_dtype)
+                    kv = sc["self"] if has_cross else sc
+                    out, _ = A.decode_self_attention(sp["mixer"], cfg, hn, kv, position, cd, ctx,
+                                                     self_len)
                     x = x + out
                     if has_cross:
-                        hn = L.norm_apply(sp["norm_cross"], x, cfg.norm_eps, compute_dtype)
-                        x = x + A.decode_cross_attention(
-                            sp["cross"], cfg, hn, sc["cross"]["k"], sc["cross"]["v"],
-                            compute_dtype)
+                        hn = norm(sp["norm_cross"], x)
+                        x = x + A.decode_cross_attention(sp["cross"], cfg, hn, sc["cross"]["k"],
+                                                         sc["cross"]["v"], cd, ctx, cross_len)
                 else:
-                    out, seg_c[f"sub{j}"][r] = S.ssm_decode_step(sp["mixer"], cfg, hn, sc,
-                                                                 compute_dtype)
+                    out, seg_c[f"sub{j}"][r] = S.ssm_decode_step(sp["mixer"], cfg, hn, sc, cd, ctx)
                     x = x + out
                 if mlp_kind != "none":
-                    hn = L.norm_apply(sp["norm2"], x, cfg.norm_eps, compute_dtype)
+                    hn = norm(sp["norm2"], x)
                     if mlp_kind == "moe":
-                        out, _ = M.moe_block(sp["mlp"], cfg, hn, compute_dtype)
+                        out = M.moe_block(sp["mlp"], cfg, hn, cd, lay)[0]
                     else:
-                        out = L.mlp(sp["mlp"], hn, cfg.act, compute_dtype)
+                        out = L.mlp(sp["mlp"], hn, cfg.act, cd, cfg.d_ff or cfg.moe_d_ff, lay)
                     x = x + out
     return x, cache

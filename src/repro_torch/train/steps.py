@@ -1,4 +1,4 @@
-"""The train step (port of ``repro.train.steps``' training half).
+"""The train, prefill and decode steps (port of ``repro.train.steps``).
 
 A :class:`TrainState` holds the params and the AdamW state as trees in the
 JAX layout (each decoder and encoder segment's leaves stacked over its
@@ -14,13 +14,24 @@ every spec is empty and no collective runs. On a mesh with ranks
 world) each rank stores the blocks that JAX's sharding rules give it
 (:func:`state_specs`): bf16 params by ``param_specs`` (over ``model``), the
 AdamW ``m``, ``v`` and ``master`` by ``opt_specs`` (ZeRO-1: also over the
-data axes), ``step`` replicated. A step gathers the params over ``model``,
-takes the rank's rows of the global batch (``batch_specs``' dim 0), runs
-autograd on them, averages the gradients and metrics over the data axes,
-takes the global grad norm from the whole reduced tree, updates its
-opt-spec blocks and all-gathers the new bf16 master blocks over the data
-axes back into the param layout. The ranks of one ``model`` group compute
-the same rows: tensor-parallel compute waits for ROADMAP A20.4b.
+data axes), ``step`` replicated. A step takes the rank's rows of the global
+batch (``batch_specs``' dim 0) and runs the loss on its param blocks with
+the mesh's model group active (``repro_torch.distributed.tp``): the ranks
+of a model group split the compute along JAX's four activation rules, each
+using a stored block where the compute needs exactly it and gathering the
+leaf where it does not. Backward leaves each rank its blocks' gradients (a
+gathered leaf's come out of the gather's reduce-scatter); the gradients of
+the leaves stored whole are shares, all-reduced over ``model``. Then the
+gradients and metrics are averaged over the data axes, the grad norm is
+the model group's all-reduced sum of squares (each leaf stored whole counted
+once), each rank updates its opt-spec blocks and the new bf16 master blocks
+are all-gathered over the data axes back into the param layout.
+
+:func:`make_prefill_step` and :func:`make_decode_step` (JAX's
+``make_prefill_step`` / ``make_decode_step``) serve on the same blocks:
+the params as ``param_specs`` gives them, the decode cache as
+``cache_specs`` does (:func:`shard_cache`); the logits come out whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from ..distributed import sharding as shd
+from ..distributed import tp
 from ..launch import mesh as mesh_lib
 from ..models import api as _api
 from ..models import attention as _attn
@@ -96,6 +108,8 @@ def _zip_map(fn, tree, specs):
         return type(tree)(*(_zip_map(fn, t, s) for t, s in zip(tree, specs)))
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, t, s) for t, s in zip(tree, specs)]
     return fn(tree, specs)
 
 
@@ -150,8 +164,8 @@ def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> C
     as in JAX, where ``xent`` then holds the mean total loss. ``REPRO_SCORE_BF16=1`` (read at
     each step) computes the attention scores in bf16."""
     mesh = resolve_mesh(mesh)
+    ctx = tp.context(mesh)
     microbatches = int(os.environ.get("REPRO_MICROBATCH", "0")) or 1
-    dev = model.dev
 
     def loss_and_grads(params, batch):
         flat = adamw.leaves(params)
@@ -160,8 +174,12 @@ def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> C
             _attn.set_block_config(score_dtype=torch.bfloat16)
         try:
             with torch.enable_grad():
-                total, metrics = model.loss(batch, adamw.unflatten(params, leaves))
-                grads = torch.autograd.grad(total, leaves, materialize_grads=True)
+                total, metrics = model.loss(batch, adamw.unflatten(params, leaves), ctx=ctx)
+                # the loss is whole on every rank of a model group: its
+                # gradient's shares are 1/m each
+                grads = torch.autograd.grad(total, leaves,
+                                            grad_outputs=torch.full_like(total, 1.0 / ctx.size),
+                                            materialize_grads=True)
         finally:
             _attn.reset_block_config()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
@@ -180,24 +198,23 @@ def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> C
         loss = loss_sum / k
         return loss, {"aux": aux_sum / k, "xent": loss}, [a / k for a in acc]
 
-    def to_device(batch):
-        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-
     specs = state_specs(model, mesh)
     p_specs, o_specs = adamw.leaves(specs.params), adamw.leaves(specs.opt["m"])
     dp = mesh_lib.dp_axis_names(mesh)
+    # the opt-spec blocks of a param-spec block: its split over the data axes
+    dp_specs = [shd.P(*(None if e == "model" else e for e in s)) for s in o_specs]
+    whole = [not any("model" in shd.entry_axes(e) for e in s) for s in p_specs]
 
     def train_step(state: TrainState, batch):
-        rows = _rows(model, mesh, to_device(batch))
-        params = adamw.unflatten(state.params, [
-            shd.gather(t, s, mesh) for t, s in zip(adamw.leaves(state.params), p_specs)])
-        loss, metrics, grads = value_and_grads(params, rows)
+        rows = _rows(model, mesh, _to_device(model, batch))
+        loss, metrics, grads = value_and_grads(state.params, rows)
+        grads = _sum_whole_leaves(grads, whole, ctx)
         names = sorted(metrics)
         reduced = shd.mean_over(grads + [loss] + [metrics[k] for k in names], mesh, dp)
         grads, loss = reduced[:len(grads)], reduced[len(grads)]
         metrics = dict(zip(names, reduced[len(grads) + 1:]))
-        gnorm = adamw.global_norm(grads)
-        blocks = [shd.shard(g, s, mesh) for g, s in zip(grads, o_specs)]
+        gnorm = _global_norm(grads, whole, ctx)
+        blocks = [shd.shard(g, s, mesh) for g, s in zip(grads, dp_specs)]
         new_blocks, new_opt, opt_metrics = adamw.adamw_update(
             opt_cfg, adamw.unflatten(state.params, blocks), state.opt, state.params,
             gnorm=gnorm)
@@ -208,3 +225,114 @@ def make_train_step(model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()) -> C
         return TrainState(new_params, new_opt), metrics
 
     return train_step
+
+
+def _to_device(model, batch):
+    return {k: torch.as_tensor(v).to(model.dev) for k, v in batch.items()}
+
+
+def _sum_whole_leaves(grads, whole, ctx):
+    """The gradients of the leaves stored whole summed over the model group
+    (each rank holds a share), in one fp32 all-reduce; the others as they
+    are."""
+    idx = [i for i, w in enumerate(whole) if w]
+    if not idx or ctx.size == 1:
+        return grads
+    flat = tp.all_reduce(torch.cat([grads[i].float().reshape(-1) for i in idx]), ctx)
+    out, at = list(grads), 0
+    for i in idx:
+        n = grads[i].numel()
+        out[i] = flat[at:at + n].reshape(grads[i].shape).to(grads[i].dtype)
+        at += n
+    return out
+
+
+def _global_norm(grads, whole, ctx):
+    """``adamw.global_norm`` of the whole gradient tree from this rank's
+    blocks: each split leaf's sum of squares all-reduced over the model
+    group, each whole leaf's (the same on every rank) counted once, added
+    in JAX's leaf order (on one rank, ``adamw.global_norm``'s sum)."""
+    sq = torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+    split = torch.tensor([not w for w in whole], device=sq.device)
+    sq = torch.where(split, tp.all_reduce(torch.where(split, sq, 0.0), ctx), sq)
+    return torch.sqrt(sum(sq.unbind()))
+
+
+# ---------------------------------------------------------------------------
+# Prefill and decode on a mesh
+# ---------------------------------------------------------------------------
+
+
+def shard_params(params, mesh):
+    """This rank's ``param_specs`` blocks of a full params tree (JAX layout)."""
+    return _zip_map(lambda t, s: shd.shard(t, s, mesh), params, shd.param_specs(params, mesh))
+
+
+def shard_cache(cache, mesh):
+    """This rank's ``cache_specs`` blocks of a full decode cache."""
+    return _zip_map(lambda t, s: shd.shard(t, s, mesh), cache, shd.cache_specs(cache, mesh))
+
+
+def gather_cache(blocks, specs, mesh):
+    """The full decode cache from every rank's blocks (a collective);
+    ``specs``: ``cache_specs`` of the full cache (:func:`cache_specs`)."""
+    return _zip_map(lambda t, s: shd.gather(t, s, mesh), blocks, specs)
+
+
+def cache_specs(model, mesh, batch: int, seq: int):
+    """``sharding.cache_specs`` of ``model.make_cache(batch, seq)`` (JAX's
+    ``cache_shardings``), from its shapes alone."""
+    return shd.cache_specs(model._cache(batch, seq, torch.device("meta")), mesh)
+
+
+def _gather_rows(x, entry, mesh):
+    return x if entry is None else shd.gather(x, shd.P(entry), mesh)
+
+
+def make_prefill_step(model, mesh=None) -> Callable:
+    """``prefill(params, batch) -> logits (B, 1, V_padded)``, whole on every
+    rank: ``params`` this rank's ``param_specs`` blocks (:func:`shard_params`),
+    ``batch`` the global prompt batch, whose rows split over the data axes
+    as in the train step; each model group runs ``Model.prefill`` on its
+    blocks (its self-attention through K6, with the rank's query offset in
+    the sequence-parallel layout)."""
+    mesh = resolve_mesh(mesh)
+    ctx = tp.context(mesh)
+
+    def prefill(params, batch):
+        batch = _to_device(model, batch)
+        entry = shd.batch_specs(batch, mesh)["tokens"][0]
+        logits = model.prefill(_rows(model, mesh, batch), params=params, ctx=ctx)
+        return _gather_rows(logits, entry, mesh)
+
+    return prefill
+
+
+def make_decode_step(model, mesh, batch: int, seq: int) -> Callable:
+    """``decode(params, cache, tokens, position) -> (logits (B, 1, V_padded)
+    whole on every rank, cache)`` for a cache of ``model.make_cache(batch,
+    seq)``: ``params`` this rank's ``param_specs`` blocks, ``cache`` its
+    ``cache_specs`` blocks (:func:`shard_cache`, updated in place), ``tokens``
+    the global (B, 1). The KV slots split over ``model``: the rank that holds
+    slot ``min(position, S - 1)`` writes it, each rank scores its slots and
+    the softmax is merged over the group; the SSM state splits over its
+    heads. A MoE model routes the whole batch's group: a split of the rows
+    over the data axes that regroups the tokens raises ``ValueError``."""
+    mesh = resolve_mesh(mesh)
+    ctx = tp.context(mesh)
+    lens = (model.dec_len(seq), seq) if model.cfg.is_encdec else (seq, 0)
+    entry = shd._dp_entry(mesh, batch)
+    n = mesh_lib.axis_size(mesh, shd.entry_axes(entry))
+    group = min(_moe.GROUP_SIZE, batch)
+    if model.cfg.n_experts and (batch // n) % group:
+        raise ValueError(f"a MoE model routes the {batch} decode tokens in groups of {group}: "
+                         f"{batch // n} rows a rank ({n} ranks over {entry}) regroup them")
+
+    def decode(params, cache, tokens, position):
+        tokens = torch.as_tensor(tokens).to(model.dev)
+        rows = tokens if entry is None else shd.shard(tokens, shd.P(entry), mesh)
+        logits, cache = model.decode_step(cache, rows, position, params=params, ctx=ctx,
+                                          cache_lens=lens)
+        return _gather_rows(logits, entry, mesh), cache
+
+    return decode

@@ -51,7 +51,8 @@ def _tensors(batch):
 def _steps(rank, arch, mesh_name, data):
     """STEPS sharded steps from the seeded state: rank 0's record of each
     step (the full state before and after, the reduced gradients the update
-    took, the metrics), and this rank's local shapes."""
+    took, gathered over ``model`` from the rank's blocks, the metrics), and
+    this rank's local shapes."""
     model = model_of(arch)
     mesh = ML.make_mesh(*MESHES[mesh_name], device="cpu")
     full = TS.init_train_state(model, torch.Generator().manual_seed(SEED), TCFG)
@@ -74,7 +75,9 @@ def _steps(rank, arch, mesh_name, data):
         for b in data:
             state, met = step(state, _tensors(b))
             after = TS.gather_state(state, specs, mesh)
-            records.append(dict(before=full, grads=seen[-1][:n_leaves], after=after,
+            grads = [shd.gather(g, s, mesh, axes=("model",))
+                     for g, s in zip(seen[-1][:n_leaves], TO.leaves(specs.params))]
+            records.append(dict(before=full, grads=grads, after=after,
                                 metrics={k: v.clone() for k, v in met.items()}))
             full = after
     finally:

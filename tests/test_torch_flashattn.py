@@ -89,11 +89,34 @@ def test_wrapper_refuses_what_the_kernel_contract_excludes():
         FA.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         FA.flash_attention(q.double(), q.double(), q.double())
-    with pytest.raises(ValueError, match="one shape"):
+    with pytest.raises(ValueError, match=r"k, v \(BH, S_kv, hd\)"):
+        FA.flash_attention(q, q[..., :8], q[..., :8])
+    with pytest.raises(ValueError, match="outside the 4 keys"):
         FA.flash_attention(q, q[:, :4], q[:, :4])
+    with pytest.raises(ValueError, match="outside the 8 keys"):
+        FA.flash_attention(q[:, :4], q, q, q_offset=5)
     with pytest.raises(ValueError, match="cpu or cuda"):
         m = q.to("meta")
         FA.flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_kv,s_q,offset", [(64, 16, 0), (64, 16, 48), (70, 35, 35),
+                                             (70, 20, 13)])
+def test_plain_with_a_query_offset_matches_attention_on_those_rows(s_kv, s_q, offset, dtype,
+                                                                   causal):
+    """K6's plain version on rows ``offset .. offset + s_q`` of the queries
+    against every key (the sequence-parallel prefill's layout) against the
+    oracle on the whole sequence restricted to those rows, at K6's
+    tolerances; offset 0 with as many queries as keys is the plain version
+    of old, bit for bit."""
+    q, k, v = (_both((3, s_kv, 16), seed, dtype)[1] for seed in (1, 2, 3))
+    got = FA.flash_attention_plain(q[:, offset:offset + s_q], k, v, causal, q_offset=offset)
+    want = FA.attention(q, k, v, causal)[:, offset:offset + s_q]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **TOL[dtype])
+    assert torch.equal(FA.flash_attention(q, k, v, causal=causal, q_offset=0),
+                       FA.flash_attention_plain(q, k, v, causal))
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -618,9 +618,11 @@ def test_smoke_family_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
 
 def _sharded_ranks(rank, n, init, out_dir):
     """One NCCL rank (its own card) of ``test_sharded_train_step_on_nccl_ranks``:
-    two fp32 steps of the smollm and deepseek smoke configs on each mesh;
-    rank 0 holds each step against its card's single-device loss and
-    gradients and the ``adamw_update`` of the reduced gradients."""
+    two fp32 steps of the smollm and deepseek smoke configs on each mesh
+    (tensor- and sequence-parallel over ``model``); rank 0 holds each step
+    against its card's single-device loss and gradients and the
+    ``adamw_update`` of the reduced gradients, gathered over ``model``, with
+    the step's grad norm."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import mesh as ML
     from repro_torch.optim import adamw as OPT
@@ -652,21 +654,26 @@ def _sharded_ranks(rank, n, init, out_dir):
                                  for k in ("tokens", "targets")}
                         state, met = step(state, batch)
                         after = TS.gather_state(state, specs, mesh)
+                        grads = [SH.gather(g, sp, mesh, axes=("model",)) for g, sp in zip(
+                            seen[-1][:len(OPT.leaves(full.params))], OPT.leaves(specs.params))]
                         if rank == 0:
-                            grads = seen[-1][:len(OPT.leaves(full.params))]
                             leaves = [p.detach().requires_grad_(True)
                                       for p in OPT.leaves(full.params)]
                             loss, _ = model.loss({k: v.cuda() for k, v in batch.items()},
                                                  OPT.unflatten(full.params, leaves))
                             single = torch.autograd.grad(loss, leaves)
                             ref_p, ref_o, _ = OPT.adamw_update(
-                                ocfg, OPT.unflatten(full.params, grads), full.opt, full.params)
+                                ocfg, OPT.unflatten(full.params, grads), full.opt, full.params,
+                                gnorm=met["grad_norm"])
                             report.append(dict(
                                 arch=arch, mesh=shape,
                                 loss_rel=abs(float(met["loss"]) - float(loss.detach()))
                                 / float(loss.detach()),
                                 grad_rel=max(float((g - s).abs().max()) / float(s.abs().max())
                                              for g, s in zip(grads, single)),
+                                gnorm_rel=abs(float(met["grad_norm"])
+                                              - float(OPT.global_norm(grads)))
+                                / float(OPT.global_norm(grads)),
                                 update_equal=all(torch.equal(a, b) for a, b in zip(
                                     OPT.leaves([after.params, after.opt]),
                                     OPT.leaves([ref_p, ref_o])))))
@@ -680,10 +687,12 @@ def _sharded_ranks(rank, n, init, out_dir):
 
 def test_sharded_train_step_on_nccl_ranks(cuda, tmp_path):
     """The sharded train step over one NCCL rank per card (all the cards):
-    meshes (N, 1), (1, N), (2, N/2) and (2, N/2, 1) over pod, data, model;
-    loss rtol 1e-5 and every reduced gradient leaf within 1e-4 * max|leaf|
-    of the single-device step on the same card, the update bit-equal to
-    ``adamw_update`` of the reduced gradients."""
+    meshes (N, 1), (1, N), (2, N/2) and (2, N/2, 1) over pod, data, model,
+    tensor- and sequence-parallel over ``model``; loss rtol 1e-5 and every
+    reduced gradient leaf within 1e-4 * max|leaf| of the single-device step
+    on the same card, the grad norm within rtol 1e-6 of theirs, the update
+    bit-equal to ``adamw_update`` of the reduced gradients with the step's
+    norm."""
     import torch.multiprocessing as mp
 
     n = torch.cuda.device_count()
@@ -695,6 +704,94 @@ def test_sharded_train_step_on_nccl_ranks(cuda, tmp_path):
     assert len(report) == 2 * (4 if n % 2 == 0 else 2) * 2
     for r in report:
         assert r["loss_rel"] <= 1e-5 and r["grad_rel"] <= 1e-4 and r["update_equal"], r
+        assert r["gnorm_rel"] <= 1e-6, r
+
+
+def _serve_sharded_ranks(rank, n, init, out_dir):
+    """One NCCL rank (its own card) of
+    ``test_sharded_prefill_decode_on_nccl_ranks``: the sharded prefill and 4
+    decode steps of the fp32 smollm, deepseek and mamba2 smoke configs on
+    (1, N) and (2, N/2) into an fp32 cache (head size 64, K6's); rank 0 holds
+    them against its card's unsharded ``prefill`` / ``decode_step`` on the
+    same weights."""
+    from repro_torch.launch import mesh as ML
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.train import steps as TS
+
+    G.init_slab_group(rank, n, init, "cuda")
+    try:
+        meshes = [((1, n), ("data", "model"))]
+        if n % 2 == 0 and n > 2:
+            meshes.append(((2, n // 2), ("data", "model")))
+        report = []
+        for arch in ("smollm-135m", "deepseek-moe-16b", "mamba2-780m"):
+            # head size 64: K6's
+            cfg = dataclasses.replace(ARCHS[arch].smoke(), param_dtype="float32",
+                                      compute_dtype="float32")
+            if cfg.n_heads:
+                cfg = dataclasses.replace(cfg, head_dim=64)
+            model = build_model(cfg, "cuda")
+            full = TS.init_train_state(model, torch.Generator().manual_seed(0)).params
+            gen = torch.Generator().manual_seed(1)
+            prompt = {"tokens": torch.randint(0, 256, (4, 128), generator=gen)}
+            b, slots = (256 if cfg.n_experts else 8), 16
+            toks = torch.randint(0, 256, (b, 4), generator=gen)
+            f32 = torch.float32
+            with torch.inference_mode():
+                cache0 = T.make_stack_cache(cfg, b, slots, "cuda", dtype=f32)
+                for t in OPT.leaves(cache0):
+                    t.copy_(0.5 * torch.randn(t.shape, generator=gen))
+                want_pre = model.prefill(prompt)
+                ref_cache = T.make_stack_cache(cfg, b, slots, "cuda", dtype=f32)
+                for x, y in zip(OPT.leaves(ref_cache), OPT.leaves(cache0)):
+                    x.copy_(y)
+                want = []
+                for i in range(4):
+                    lg, ref_cache = model.decode_step(ref_cache, toks[:, i:i + 1], 6 + i)
+                    want.append(lg)
+            for shape, axes in meshes:
+                mesh = ML.make_mesh(shape, axes, device="cuda")
+                params = TS.shard_params(full, mesh)
+                pre = TS.make_prefill_step(model, mesh)(params, prompt)
+                blocks = TS.shard_cache(T.make_stack_cache(cfg, b, slots, "cuda", dtype=f32),
+                                        mesh)
+                for x, y in zip(OPT.leaves(blocks), OPT.leaves(TS.shard_cache(cache0, mesh))):
+                    x.copy_(y)
+                dec = TS.make_decode_step(model, mesh, b, slots)
+                got = []
+                for i in range(4):
+                    lg, blocks = dec(params, blocks, toks[:, i:i + 1], 6 + i)
+                    got.append(lg)
+                if rank == 0:
+                    report.append(dict(arch=arch, mesh=shape, rel=max(
+                        float((g - w).abs().max()) / float(w.abs().max())
+                        for g, w in zip([pre] + got, [want_pre] + want)), ids=all(
+                        torch.equal(g.argmax(-1), w.argmax(-1))
+                        for g, w in zip([pre] + got, [want_pre] + want))))
+        torch.save(report, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_prefill_decode_on_nccl_ranks(cuda, tmp_path):
+    """The sharded prefill and decode steps over one NCCL rank per card (all
+    the cards): K6 with the rank's query offset (smollm's 2 KV heads on 4
+    cards), KV slots split over ``model`` and merged softmax, SSM heads
+    split; logits within 1e-4 * max of the unsharded ones on the same card,
+    equal greedy ids."""
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    mp.start_processes(_serve_sharded_ranks, args=(n, f"file://{tmp_path}/store",
+                                                   str(tmp_path)),
+                       nprocs=n, join=True, start_method="spawn")
+    report = torch.load(tmp_path / "rank0.pt")
+    assert len(report) == 3 * (2 if n % 2 == 0 and n > 2 else 1)
+    for r in report:
+        assert r["rel"] <= 1e-4 and r["ids"], r
 
 
 def _compression_ranks(rank, n, init, out_dir):

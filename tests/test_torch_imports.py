@@ -55,7 +55,7 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 def test_import_scan_covers_the_slab_package():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    for name in ("__init__", "claire_dist", "compression", "group", "halo"):
+    for name in ("__init__", "claire_dist", "compression", "group", "halo", "sharding", "tp"):
         assert f"src/repro_torch/distributed/{name}.py" in scanned
 
 

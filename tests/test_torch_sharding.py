@@ -8,7 +8,9 @@ the oracle, with no devices and no compile. Every leaf's ``param_spec`` and
 ``opt_spec`` of every arch in ``ARCHS`` (full published configs: JAX's
 ``abstract_params``, the port's train state on ``meta``) equals JAX's, path
 for path, on the meshes (16, 16), (2, 16, 16), (2, 2), (4, 1) and (1, 4);
-so do ``batch_specs``, ``cache_specs`` and ``logits_spec``. The eight
+so do ``batch_specs``, ``cache_specs``, ``logits_spec`` and the four
+activation rules (JAX's hooks with the constraint replaced by a function
+that returns its spec; JAX's residual at its default, split). The eight
 intents of the red file are restated against the port, and the block
 helpers (``local_shape``, ``shard``, ``gather``) are checked on a one-rank
 gloo world and on coordinates.
@@ -122,6 +124,38 @@ def test_mesh_axis_helpers_match_jax(mesh):
     assert ML.model_axis_name(pm) == jmesh.model_axis_name(stub)
     for names in ("model", "data", "pod", ("pod", "data"), ("data", "model"), ()):
         assert ML.axis_size(pm, names) == jmesh.axis_size(stub, names)
+
+
+#: activation shapes: (B, S) of the residual / q, the KV heads, the SSM
+#: projection's width, the experts of a dispatched (E, G, C, D) tensor
+_ACTIVATIONS = [(8, 2048, 2, 4096, 64), (4, 100, 3, 3354, 16), (32, 64, 16, 130, 6),
+                (1, 16, 4, 64, 8)]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_activation_rules_match_jax(mesh, monkeypatch):
+    """The four activation rules give JAX's specs: JAX's constraint hooks
+    run with ``with_sharding_constraint`` replaced by a function that
+    returns the spec it was asked for, on the stub mesh."""
+    stub = _stub(mesh)
+    monkeypatch.setattr(jshd, "NamedSharding", lambda m, spec: spec)
+    monkeypatch.setattr(jshd.jax.lax, "with_sharding_constraint", lambda x, spec: spec)
+    monkeypatch.setattr(jshd, "RESIDUAL_SEQ_SHARD", True)
+    for b, s, kvh, width, e in _ACTIVATIONS:
+        x = types.SimpleNamespace(shape=(b, s, 64))
+        assert tuple(shd.residual_constraint(stub)(x.shape)) == tuple(
+            jshd.residual_constraint(stub)(x))
+        q, k = (b, s, kvh, 3, 16), (b, s, kvh, 16)
+        jq, jk, _ = jshd.qkv_constraint(stub)(*(types.SimpleNamespace(shape=t)
+                                                for t in (q, k, k)))
+        got = shd.qkv_constraint(stub)(q, k)
+        assert (tuple(got[0]), tuple(got[1])) == (tuple(jq), tuple(jk))
+        w = (b, s, width)
+        assert tuple(shd.ssm_inner_constraint(stub)(w)) == tuple(
+            jshd.ssm_inner_constraint(stub)(types.SimpleNamespace(shape=w)))
+        d = (e, b, 8, 64)
+        assert tuple(shd.expert_constraint(stub)(d)) == tuple(
+            jshd.expert_constraint(stub)(types.SimpleNamespace(shape=d)))
 
 
 def test_production_meshes_are_abstract():
