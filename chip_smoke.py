@@ -192,6 +192,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              by tests/test_torch_compression.py (4 gloo ranks
                              against JAX) and test_torch_gpu.py (one NCCL
                              rank a card).
+              ensemble_step:claire_256  ``claire_dist.ensemble_newton_step``
+                             (the dry-run's registration cell: fd8-cubic
+                             plans, GNConfig(max_pcg=6, ls_max=1)) on two
+                             seeded size^3 pairs from v = 0: K1 and K2; each
+                             pair's stats and v_new bit-equal to
+                             ``gauss_newton.make_step`` on that pair alone;
+                             its wall time and peak
+              dryrun         ``repro_torch.launch.dryrun``'s predictions (fake
+                             tensors, a one-rank fake world, in three spawned
+                             processes) beside measured runs on the card: one
+                             step of
+                             train:smollm-135m (8 x 2048; peak above its
+                             arguments, FlopCounterMode's FLOPs, the phase's
+                             steady step time and its peak), the
+                             qwen1.5-0.5b prefill of serve_lm (8 x 2048; K6's
+                             predicted launches against the path's counted
+                             ones) and the ensemble step (its wall time, also
+                             at the PCG and line-search counts it took);
+                             then the records of JAX's test cell
+                             (smollm-135m decode_32k multi), smollm-135m
+                             train_4k single and both claire_256_ensemble
+                             modes, each a ``python -m
+                             repro_torch.launch.dryrun`` subprocess
+              examples       each script of examples_torch/ as a subprocess on
+                             the card at EXAMPLES_ARGV (run beside the dry-run
+                             records): exit code, seconds, its last line
 18. times   : each kernel at its main-path shape (CUDA events after warm-up)
               beside its bound, its plain version and the library call that
               computes the same function, where there is one (K6: SDPA); K4
@@ -213,7 +239,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ``train:forward`` / ``train:adamw`` ranges.
 
 Then a ``script`` line (the script's wall time, and the shares of the five
-non-dense LM paths and of the training phases), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
+non-dense LM paths, of the training phases and of ensemble_step, dryrun
+and examples), the ``nvidia-smi`` name/power-limit line, a JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -227,6 +254,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import socket
@@ -422,11 +450,37 @@ TRAIN_GRAD_REL = 1e-4      # each gradient leaf and the grad norm, vs max|CPU le
 #: Not against the CPU's own step: Adam's first move is sign(g) * lr, and a
 #: gradient element within the gradient tolerance of 0 may step either way.
 TRAIN_UPDATE_REL = 1e-6
-#: K4 operations per voxel besides the taps: floor, fraction and weights on
-#: three axes (the B-spline's ~22 per axis; 3 for linear).
-K4_WEIGHT_OPS = {"linear": 9, "cubic_bspline": 66, "cubic_lagrange": 60}
-#: per field and voxel: S^2 weight pairs + S^3 (multiply, multiply, add).
-TAP_OPS = {2: 4 + 24, 4: 16 + 192}
+#: ensemble_step:claire_256: the dry-run's registration cell (one Newton
+#: step, 6 PCG matvecs, one line-search trial) on two seeded pairs, the
+#: kernels it must launch (the dry-run's transport: plans, no fused matvec)
+ENSEMBLE_PAIRS = 2
+ENSEMBLE_REQUIRED = _K1_KEYS + ["apply_plan"]
+#: dryrun: the records of JAX's test cell, one train cell and both
+#: registration modes, each a ``python -m repro_torch.launch.dryrun`` run
+DRYRUN_RECORDS = {
+    "smollm-135m decode_32k multi": ["--arch", "smollm-135m", "--shape", "decode_32k",
+                                     "--mesh", "multi"],
+    "smollm-135m train_4k single": ["--arch", "smollm-135m", "--shape", "train_4k",
+                                    "--mesh", "single"],
+    "claire_256_ensemble ensemble single": ["--claire", "claire_256_ensemble",
+                                            "--claire-mode", "ensemble", "--mesh", "single"],
+    "claire_256_ensemble slab single": ["--claire", "claire_256_ensemble",
+                                        "--claire-mode", "slab", "--mesh", "single"],
+}
+#: examples: each script of examples_torch/ on the card at small arguments
+EXAMPLES_ARGV = {
+    "quickstart": ["--grid", "16"],
+    "registration_3d": ["--grid", "16", "--max-newton", "3"],
+    "multires_registration": ["--grid", "16", "--max-newton", "3"],
+    "multimodal_registration": ["--grid", "12", "--max-newton", "3"],
+    "ensemble_registration": ["--grid", "16", "--batch", "2", "--newton-steps", "2"],
+    "serve_registration": ["--grid", "16", "--subjects", "2", "--max-newton", "4"],
+    "serve_lm": ["--requests", "4", "--prompt", "64", "--gen", "8"],
+    "train_lm": ["--steps", "5", "--batch", "4", "--seq", "64"],
+}
+SIDE_TIMEOUT_S = 300
+#: dryrun: the predicted products' FLOPs against FlopCounterMode's on the card
+DRYRUN_FLOPS_REL = 0.01
 
 
 def emit(phase: str, **fields) -> None:
@@ -997,6 +1051,163 @@ def profile(label: str, solve, unprofiled_wall_s: float) -> dict:
                 top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in top[:12]])
 
 
+def start_side_runs(tmp: pathlib.Path) -> dict:
+    """The examples (on the card) and the dry-run records (no device), each
+    a subprocess, all started at once, each waited on by a thread of its
+    own: label -> (thread, result dict, out file)."""
+    import threading
+
+    def wait(proc, t0, res):
+        try:
+            res["stdout"], res["stderr"] = proc.communicate(timeout=SIDE_TIMEOUT_S)
+            res["rc"] = proc.returncode
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            res["stdout"], res["stderr"] = proc.communicate()
+            res["rc"] = None
+        res["seconds"] = time.perf_counter() - t0
+
+    cmds = {f"example:{name}": ([sys.executable, str(ROOT / "examples_torch" / f"{name}.py")]
+                                + argv, None, None)
+            for name, argv in EXAMPLES_ARGV.items()}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for i, (label, argv) in enumerate(DRYRUN_RECORDS.items()):
+        out = tmp / f"dryrun_{i}.jsonl"
+        cmds[f"dryrun:{label}"] = ([sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                                    "--out", str(out)], env, out)
+    runs = {}
+    for label, (cmd, cmd_env, out) in cmds.items():
+        res = {}
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=cmd_env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        thread = threading.Thread(target=wait, args=(proc, time.perf_counter(), res))
+        thread.start()
+        runs[label] = (thread, res, out)
+    return runs
+
+
+def finish_side_runs(runs: dict) -> dict:
+    """label -> dict(rc, seconds to its own exit, its last line, the
+    dry-run's record); a run past SIDE_TIMEOUT_S is killed (rc None)."""
+    done = {}
+    for label, (thread, res, out) in runs.items():
+        thread.join()
+        lines = [ln for ln in res["stdout"].splitlines() if ln.strip()]
+        rec = dict(rc=res["rc"], seconds=res["seconds"],
+                   key_line=lines[-1] if lines else "",
+                   stderr_tail=(res["stderr"].strip().splitlines()[-3:] if res["rc"] != 0
+                                else []))
+        if out is not None and out.exists():
+            rec["record"] = json.loads(out.read_text().splitlines()[-1])
+        done[label] = rec
+    return done
+
+
+def predict_pool(workers: int):
+    """Worker processes for the dry-run's predictions (spawned: each its own
+    fake world, none of this process's CUDA state)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def rel_gap(predicted: float, measured: float) -> float:
+    """(predicted - measured) / measured."""
+    return (predicted - measured) / measured if measured else float("inf")
+
+
+def measure_step(fn, args_bytes: int) -> dict:
+    """One run of ``fn`` on the card: its peak (the allocator's peak above
+    what was allocated before, plus ``args_bytes``, the step's arguments
+    allocated before it) and wall time; then one more run under
+    ``FlopCounterMode`` (the products PyTorch dispatches; a hand-written
+    kernel is invisible to it)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = torch.cuda.max_memory_allocated() - before
+    del out
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return dict(peak_bytes=delta + args_bytes, peak_above_args=delta, args_bytes=args_bytes,
+                flops=fc.get_total_flops(), wall_s=wall)
+
+
+def dryrun_comparison(preds, train, prefill, ens_wall, ens_peak, ens_args, ens_counts):
+    """Phase dryrun's numbers: each prediction of ``launch.dryrun`` (one
+    rank, (1, 1) mesh) beside the measured run. FLOPs compare the products
+    (a kernel's FLOPs, which the dry-run adds and ``FlopCounterMode`` cannot
+    see, are taken out); ok needs those within DRYRUN_FLOPS_REL and K6's
+    predicted launches equal to the counted ones."""
+    from repro_torch.launch import dryrun as DR
+
+    def products(rec):
+        return rec["roofline"]["hlo_flops_device"] - sum(
+            k["flops"] for name, k in rec["kernels"].items() if name == "flash_attention")
+
+    def row(rec, m, step_s):
+        return dict(
+            predicted_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+            measured_peak_gb=m["peak_bytes"] / 1e9,
+            peak_gap=rel_gap(rec["memory"]["peak_bytes"], m["peak_bytes"]),
+            predicted_argument_gb=rec["memory"]["argument_bytes"] / 1e9,
+            measured_argument_gb=m["args_bytes"] / 1e9,
+            predicted_product_flops=products(rec), measured_flops=m["flops"],
+            flops_gap=rel_gap(products(rec), m["flops"]),
+            predicted_step_s=rec["roofline"]["step_s"], measured_step_s=step_s,
+            step_gap=rel_gap(rec["roofline"]["step_s"], step_s),
+            bound=rec["roofline"]["bound"], terms_s=[rec["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s")],
+            hbm_bytes=rec["roofline"]["hlo_bytes_device"], kernels=rec["kernels"],
+            run_s=rec["run_s"])
+
+    tr, pf, en = preds["train"], preds["prefill"], preds["ensemble"]
+    train_row = row(tr, train, train["steady_step_s"])
+    train_row.update(phase_peak_above_script_gb=train["phase_peak_above_script"] / 1e9,
+                     peak_gap_vs_phase=rel_gap(tr["memory"]["peak_bytes"],
+                                               train["phase_peak_above_script"]))
+    prefill_row = row(pf, prefill, prefill["prefill_s"])
+    prefill_row.update(
+        measured_prefill_wall_s=prefill["wall_s"],
+        predicted_k6=pf["kernels"].get("flash_attention", {}).get("launches", 0),
+        counted_k6=prefill["k6_launches"])
+    # the registration step at the counts the run took (its PCG iterations
+    # and line-search trials per pair) besides the cell's 6-matvec budget
+    pieces = en["pieces"]
+    measured_bytes = 0.0
+    for pcg, ls in zip(*ens_counts):
+        w = dict(DR.step_weights(pcg), objective=ls)
+        measured_bytes += sum(w[k] * pieces[k]["mem_bytes"] for k in w)
+    at_counts_s = measured_bytes / HW["hbm_bw"]
+    ens_row = dict(
+        pairs=en["pairs_per_rank"], predicted_peak_gb=en["memory"]["peak_bytes"] / 1e9,
+        measured_peak_gb=(ens_peak + ens_args) / 1e9,
+        peak_gap=rel_gap(en["memory"]["peak_bytes"], ens_peak + ens_args),
+        predicted_step_s=en["roofline"]["step_s"], measured_step_s=ens_wall,
+        step_gap=rel_gap(en["roofline"]["step_s"], ens_wall),
+        pcg_iters=ens_counts[0], ls_evals=ens_counts[1],
+        predicted_step_s_at_the_runs_counts=at_counts_s,
+        step_gap_at_the_runs_counts=rel_gap(at_counts_s, ens_wall),
+        bound=en["roofline"]["bound"], kernels=en["kernels"], run_s=en["run_s"])
+    ok = (abs(train_row["flops_gap"]) <= DRYRUN_FLOPS_REL
+          and abs(prefill_row["flops_gap"]) <= DRYRUN_FLOPS_REL
+          and prefill_row["predicted_k6"] == prefill_row["counted_k6"] > 0
+          and all(math.isfinite(r[k]) for r in (train_row, prefill_row, ens_row)
+                  for k in ("predicted_peak_gb", "predicted_step_s")))
+    return dict(ok=ok, train=train_row, prefill=prefill_row, ensemble=ens_row,
+                flops_rel_tol=DRYRUN_FLOPS_REL)
+
+
 @contextlib.contextmanager
 def slab_group(dev):
     """A one-rank NCCL group (``repro_torch.distributed.group``) on this
@@ -1004,6 +1215,7 @@ def slab_group(dev):
     all-reduce and destroyed on exit."""
     import torch
     import torch.distributed as dist
+    from repro_torch.distributed import claire_dist as CD
     from repro_torch.distributed import group as G
 
     with socket.socket() as s:
@@ -1103,6 +1315,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import ARCHS, REGISTRATIONS
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import baseline_gd as BGD
+    from repro_torch.core import gauss_newton as GN
     from repro_torch.core import gradient as GR
     from repro_torch.core import hessian as HS
     from repro_torch.core import interp as I
@@ -1111,6 +1324,7 @@ def main(argv=None) -> int:
     from repro_torch.core import semilag as SL
     from repro_torch.core import transport as TR
     from repro_torch.data import synthetic as S
+    from repro_torch.distributed import claire_dist as CD
     from repro_torch.distributed import group as G
     from repro_torch.kernels import _build, counts
     from repro_torch.kernels import fd8 as FD8
@@ -1118,6 +1332,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import interp3d as K
     from repro_torch.kernels import pencil as P
     from repro_torch.kernels import prefilter as PF
+    from repro_torch.launch import dryrun as DR
     from repro_torch.launch import register as CLI
     from repro_torch.launch import serve_lm
     from repro_torch.launch import serve_registration as SCLI
@@ -2003,6 +2218,7 @@ def main(argv=None) -> int:
              **fields)
         if not (ok and restart_ok):
             return 1
+        train_phase_peak = fields["max_memory_allocated"] - fields["memory_allocated_before"]
         del trainer_b, state_b
         torch.cuda.empty_cache()
         with slab_group(dev):
@@ -2021,9 +2237,98 @@ def main(argv=None) -> int:
         with train_ranges(trainer.model):
             train_profile = profile("train:smollm-135m step",
                                     lambda: trainer.step_fn(state, prof_batch), steady_s)
+        # for phase dryrun: one more step's peak above its arguments (the
+        # state and the batch), and one more under FlopCounterMode
+        train_measured = measure_step(lambda: trainer.step_fn(state, prof_batch),
+                                      nbytes(*OPT.leaves([state.params, state.opt]))
+                                      + nbytes(*prof_batch.values()))
+        train_measured.update(steady_step_s=steady_s, phase_peak_above_script=train_phase_peak)
         del trainer, state, batches, prof_batch
         torch.cuda.empty_cache()
     train_s = time.perf_counter() - t_train
+
+    # ensemble_step:claire_256: the dry-run's registration cell on two pairs
+    t_new = time.perf_counter()
+    rcfg = REGISTRATIONS["claire_256_ensemble"]
+    ens_cfg = TR.TransportConfig(interp="cubic_bspline", deriv="fd8", nt=rcfg.nt)
+    ens_gn = GN.GNConfig(**DR.GN_CELL)
+    pairs = S.make_batch(args.seed, shape, ENSEMBLE_PAIRS, device=dev)
+    v0 = torch.zeros((ENSEMBLE_PAIRS, 3) + shape, device=dev)
+    eta = ens_gn.forcing_max
+    ens_step = CD.ensemble_newton_step(ens_cfg, ens_gn)
+    ens_step(pairs.m0, pairs.m1, v0, rcfg.beta, rcfg.gamma, eta)  # warm-up (cuFFT plans)
+    est, fields = drive("ensemble_step:claire_256", ENSEMBLE_REQUIRED,
+                        lambda: ens_step(pairs.m0, pairs.m1, v0, rcfg.beta, rcfg.gamma, eta))
+    ens_wall = fields.pop("wall_s")
+    ens_peak = fields["max_memory_allocated"] - fields["memory_allocated_before"]
+    one_step = GN.make_step(ens_cfg, ens_gn)
+    pair_equal = []
+    for b in range(ENSEMBLE_PAIRS):
+        r = one_step(pairs.m0[b], pairs.m1[b], v0[b], rcfg.beta, rcfg.gamma, eta)
+        pair_equal.append(
+            torch.equal(est.v_new[b], r.v_new) and int(est.pcg_iters[b]) == r.pcg_iters
+            and int(est.ls_evals[b]) == r.ls_evals
+            and all(torch.equal(getattr(est, k)[b], torch.as_tensor(getattr(r, k)))
+                    for k in GN._SCALARS))
+    ok = (all(pair_equal) and not fields["missing"] and not fields["plain_runs"]
+          and bool(torch.isfinite(est.v_new).all())
+          and tuple(est.v_new.shape) == (ENSEMBLE_PAIRS, 3) + shape)
+    emit("ensemble_step:claire_256", ok=ok, size=n, pairs=ENSEMBLE_PAIRS, gn=DR.GN_CELL,
+         transport=dict(interp=ens_cfg.interp, deriv=ens_cfg.deriv, nt=ens_cfg.nt),
+         pcg_iters=est.pcg_iters.tolist(), ls_evals=est.ls_evals.tolist(),
+         gnorm=est.gnorm.tolist(), alpha=est.alpha.tolist(), pairs_bit_equal=pair_equal,
+         step_wall_s=ens_wall, per_pair_s=ens_wall / ENSEMBLE_PAIRS,
+         peak_gb_less_script=ens_peak / 1e9, **fields)
+    if not ok:
+        return 1
+    ens_args = nbytes(pairs.m0, pairs.m1, v0)
+    ens_counts = (est.pcg_iters.tolist(), est.ls_evals.tolist())
+    del est, pairs, v0
+
+    # dryrun: the qwen1.5-0.5b prefill's peak and FLOPs on the card, then the
+    # predictions (in this process, no device) beside the examples and the
+    # dry-run records (subprocesses)
+    model, lm_batch, g = lm_keep
+    weights_bytes = nbytes(*model.state_dict().values())
+    prefill_measured = measure_step(lambda: model.prefill(lm_batch),
+                                    weights_bytes + nbytes(*lm_batch.values()))
+    prefill_measured.update(
+        prefill_s=lm_walls["serve_lm:qwen1.5-0.5b"][0],
+        k6_launches=path_launches["serve_lm:qwen1.5-0.5b"].get("flash_attention", 0))
+    one_rank = ((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_side, predict_pool(3) as pool:
+        futures = dict(
+            train=pool.submit(DR.lm_cell, ARCHS["smollm-135m"],
+                              ShapeConfig("train", 2048, 8, "train"), *one_rank),
+            prefill=pool.submit(DR.lm_cell, lm_config(LM_PATHS["serve_lm:qwen1.5-0.5b"]),
+                                ShapeConfig("prefill", 2048, 8, "prefill"), *one_rank),
+            ensemble=pool.submit(DR.claire_cell, dataclasses.replace(
+                rcfg, grid=shape, ensemble=ENSEMBLE_PAIRS), "ensemble", *one_rank))
+        side = start_side_runs(pathlib.Path(tmp_side))
+        try:
+            preds = {k: f.result() for k, f in futures.items()}
+            predict_s = time.perf_counter() - t0
+        finally:
+            side_runs = finish_side_runs(side)
+    dry = dryrun_comparison(preds, train_measured, prefill_measured, ens_wall, ens_peak,
+                            ens_args, ens_counts)
+    records = {k.split(":", 1)[1]: v for k, v in side_runs.items() if k.startswith("dryrun:")}
+    ok = dry.pop("ok") and all(r["rc"] == 0 and r.get("record", {}).get("status") == "ok"
+                               for r in records.values())
+    emit("dryrun", ok=ok, predict_s=predict_s, **dry,
+         records={k: dict(rc=r["rc"], seconds=r["seconds"], record=r.get("record"),
+                          stderr_tail=r["stderr_tail"]) for k, r in records.items()})
+    if not ok:
+        return 1
+    examples = {k.split(":", 1)[1]: v for k, v in side_runs.items()
+                if k.startswith("example:")}
+    ok = all(r["rc"] == 0 for r in examples.values())
+    emit("examples", ok=ok, runs={k: dict(argv=EXAMPLES_ARGV[k], **v)
+                                  for k, v in examples.items()})
+    if not ok:
+        return 1
+    new_phases_s = time.perf_counter() - t_new
 
     def path_count(key):
         return sum(snap.get(key, 0) for snap in path_launches.values())
@@ -2044,7 +2349,7 @@ def main(argv=None) -> int:
             fd8_lib.append(timed(lambda c=conv: c(x5), reps))
     rows["stencil_axis:fd8"] = dict(
         ms=sum(fd8_ms) / 3, plain_ms=sum(fd8_plain) / 3, library_ms=sum(fd8_lib) / 3,
-        bound=bound_ms(2 * nbytes(f), 13 * f.numel()),
+        bound=bound_ms(2 * nbytes(f), P.stencil_flops(f.numel(), 4, False)),
         shape=list(f.shape), per_axis_ms=fd8_ms)
 
     pf_ms = [timed(lambda a=a: P.stencil_axis(stack2, a, PF.PREFILTER_TAPS, True, 1.0),
@@ -2060,7 +2365,7 @@ def main(argv=None) -> int:
             pf_lib.append(timed(lambda c=conv: c(s5), reps))
     rows["stencil_axis:prefilter"] = dict(
         ms=sum(pf_ms) / 3, plain_ms=sum(pf_plain) / 3, library_ms=sum(pf_lib) / 3,
-        bound=bound_ms(2 * nbytes(stack2), 23 * stack2.numel()),
+        bound=bound_ms(2 * nbytes(stack2), P.stencil_flops(stack2.numel(), 8, True)),
         shape=list(stack2.shape), per_axis_ms=pf_ms)
 
     m = f.numel()
@@ -2069,10 +2374,10 @@ def main(argv=None) -> int:
             ms=timed(lambda p=plan: K.apply_plan(coef1, p), reps),
             plain_ms=timed(lambda p=plan: K.apply_plan_plain(coef1, p), plain_reps),
             library_ms=None,
-            bound=bound_ms(plan_bytes(plan) + 2 * nbytes(coef1), m * TAP_OPS[4]),
+            bound=bound_ms(plan_bytes(plan) + 2 * nbytes(coef1), K.gather_flops(m, 4)),
             shape=list(coef1.shape),
             k3_ms=timed(lambda p=plan: K.apply_plan(coef3, p), reps))
-        for epi, epi_ops in (("inc_state", 3), ("inc_adjoint", 6)):
+        for epi, epi_ops in K.EPILOGUE_OPS.items():
             rows[f"apply_plan_fused:{epi}{sfx}"] = dict(
                 ms=timed(lambda e=epi, p=plan: K.apply_plan_fused(coef2, p, extra, e, 0.25),
                          reps),
@@ -2080,7 +2385,7 @@ def main(argv=None) -> int:
                     coef2, p, extra, e, 0.25), plain_reps),
                 library_ms=None,
                 bound=bound_ms(plan_bytes(plan) + nbytes(coef2, extra) + 4 * m,
-                               m * (2 * TAP_OPS[4] + epi_ops)),
+                               K.gather_flops(m, 4, 2) + m * epi_ops),
                 shape=list(coef2.shape))
     pad = SL.DISPLACEMENT_BOUND + 1
     uniform_q = k24_query_sets(foot, args.seed, dev)["uniform"][1]
@@ -2107,7 +2412,8 @@ def main(argv=None) -> int:
                     library_ms=timed(lib[0], reps) if lib else None,
                     library_max_abs_dev=lib[1] if lib else None,
                     bound=bound_ms(nbytes(foot) + 2 * nbytes(coef),
-                                   m * (K4_WEIGHT_OPS[basis] + kf * TAP_OPS[support])))
+                                   m * K.QUERY_WEIGHT_OPS[basis]
+                                   + K.gather_flops(m, support, kf)))
             rows[f"interp3d:{basis}{sfx}"] = dict(row[1], shape=list(coef1.shape),
                                                   k2=row[2])
     k5_rows = {}
@@ -2124,7 +2430,8 @@ def main(argv=None) -> int:
             plain_ms=timed(lambda x=x: P.stencil_valid_plain(x, 0, FD8.FD8_COEFFS, k5_scale),
                            plain_reps),
             library_ms=lib_ms, library_max_abs_dev=lib_dev,
-            bound=bound_ms(nbytes(x) + 4 * out_numel, 13 * out_numel), shape=list(x.shape))
+            bound=bound_ms(nbytes(x) + 4 * out_numel, P.stencil_flops(out_numel, 4, False)),
+            shape=list(x.shape))
     rows["stencil_valid:fd8"] = dict(k5_rows["1 rank"], stack=k5_rows["4 slabs, 5 fields"])
 
     # K6: shape (a) causal, the qwen1.5-0.5b prefill; the other cases beside
@@ -2220,7 +2527,8 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - t_script
     emit("script", total_s=total_s, new_lm_paths_s=new_lm_s,
          new_lm_paths_share=new_lm_s / total_s, train_paths_s=train_s,
-         train_paths_share=train_s / total_s)
+         train_paths_share=train_s / total_s, ensemble_dryrun_examples_s=new_phases_s,
+         ensemble_dryrun_examples_share=new_phases_s / total_s)
     print(smi_line)
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

@@ -41,22 +41,35 @@ def solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     rz = inner(r, z)
     bnorm = torch.sqrt(inner(b, b))
     k = 0
-    while bool(torch.sqrt(inner(r, r)) > tol * bnorm) and k < max_iters:
+    while bool(residual(r, inner) > tol * bnorm) and k < max_iters:
         hp = matvec(p)
-        php = inner(p, hp)
-        # Guard against breakdown (H is SPD up to roundoff).
-        alpha = rz / torch.where(php > 0, php, 1.0)
-        alpha = torch.where(php > 0, alpha, 0.0)
-        x = x + alpha * p
-        r = r - alpha * hp
+        x, r = update(x, r, p, hp, rz, inner)
         z = precond(r)
-        rz_new = inner(r, z)
-        beta_cg = rz_new / torch.where(rz != 0.0, rz, 1.0)
-        p = z + beta_cg * p
-        rz = rz_new
+        p, rz = direction(r, z, p, rz, inner)
         k += 1
-    rel = torch.sqrt(inner(r, r)) / torch.where(bnorm > 0, bnorm, 1.0)
+    rel = residual(r, inner) / torch.where(bnorm > 0, bnorm, 1.0)
     return PCGResult(x=x, iters=k, rel_residual=rel)
+
+
+def residual(r: torch.Tensor, inner) -> torch.Tensor:
+    return torch.sqrt(inner(r, r))
+
+
+def update(x, r, p, hp, rz, inner):
+    """An iteration's step along ``p`` given ``hp = H p``: the new ``x, r``."""
+    php = inner(p, hp)
+    # Guard against breakdown (H is SPD up to roundoff).
+    alpha = rz / torch.where(php > 0, php, 1.0)
+    alpha = torch.where(php > 0, alpha, 0.0)
+    return x + alpha * p, r - alpha * hp
+
+
+def direction(r, z, p, rz, inner):
+    """An iteration's next search direction from ``z = M^-1 r``: the new
+    ``p, rz``."""
+    rz_new = inner(r, z)
+    beta_cg = rz_new / torch.where(rz != 0.0, rz, 1.0)
+    return z + beta_cg * p, rz_new
 
 
 def make_reg_preconditioner(beta: float, gamma: float, shard=None

@@ -10,6 +10,13 @@ exchange halos, spectral operators all-gather, inner products all-reduce.
 Every host-side decision reads all-reduced scalars, so every rank takes the
 same branch and issues the same collectives.
 
+``ensemble_newton_step`` is the population-study step: one Newton step of
+every pair of a batch, the pairs independent (JAX vmaps the single-pair
+step; the port runs each pair's step in turn), with no collective.
+``ensemble_shardings`` / ``slab_shardings`` give JAX's layouts of the
+ensemble and the slab step as specs (``sharding.P``) over a mesh, and
+``ensemble_input_specs`` / ``slab_input_specs`` their inputs' shapes.
+
 ``solve_slab`` solves one pair over a slab group. ``solve_ensemble_slab``
 solves a batch over an (ensemble, slab) layout of ranks
 (``group.ensemble_slab_groups``): the pairs are split over the ensemble
@@ -28,8 +35,99 @@ import torch.distributed as dist
 
 from ..core import gauss_newton as _gn
 from ..core import transport as _tr
+from ..launch.mesh import axis_size
+from ..models.api import TensorSpec
 from . import group as _group
 from . import halo as _halo
+from .sharding import P
+
+
+# ---------------------------------------------------------------------------
+# Ensemble (population study) parallelism
+# ---------------------------------------------------------------------------
+
+
+def ensemble_newton_step(cfg: _tr.TransportConfig, gn: _gn.GNConfig):
+    """The Newton step of a batch of independent pairs,
+    ``step(m0, m1, v, beta, gamma, eta)``: ``m0, m1`` ``(B, N1, N2, N3)``,
+    ``v`` ``(B, 3, N1, N2, N3)``, ``beta, gamma, eta`` shared scalars.
+    Returns the stats stacked on a leading batch axis, every pair stepped
+    (``gauss_newton._make_batch_step`` with every pair active): pair ``b``'s
+    entries and ``v_new[b]`` are those of ``make_step`` on that pair alone."""
+    bstep = _gn._make_batch_step(cfg, gn)
+
+    def batch_step(m0, m1, v, beta, gamma, eta):
+        if m0.dim() != 4 or tuple(m1.shape) != tuple(m0.shape):
+            raise ValueError(f"expected batched images m0, m1 (B, N1, N2, N3) of one shape, "
+                             f"got {tuple(m0.shape)} and {tuple(m1.shape)}")
+        bsz = m0.shape[0]
+        if tuple(v.shape) != (bsz, 3) + tuple(m0.shape[1:]):
+            raise ValueError(f"expected velocities {(bsz, 3) + tuple(m0.shape[1:])}, "
+                             f"got {tuple(v.shape)}")
+        return bstep(m0, m1, v, beta, gamma, np.full(bsz, float(eta)),
+                     np.ones(bsz, dtype=bool))
+
+    return batch_step
+
+
+def ensemble_shardings(mesh, batch: int):
+    """(image spec, velocity spec) of the ensemble step: the pair axis over
+    every mesh axis that divides it, in (pod, data, model) order (pairs need
+    no communication, so ``model`` is free for them too)."""
+    entry: tuple = ()
+    size = 1
+    for a in ("pod", "data", "model"):
+        if a in mesh.axis_names and batch % (size * mesh.shape[a]) == 0:
+            entry += (a,)
+            size *= mesh.shape[a]
+    # one axis is named alone, as JAX's PartitionSpec canonicalises it
+    spec0 = (entry[0] if len(entry) == 1 else entry) if entry else None
+    return P(spec0, None, None, None), P(spec0, None, None, None, None)
+
+
+def ensemble_input_specs(grid_shape, batch: int):
+    n1, n2, n3 = grid_shape
+    f32 = torch.float32
+    return dict(m0=TensorSpec((batch, n1, n2, n3), f32),
+                m1=TensorSpec((batch, n1, n2, n3), f32),
+                v=TensorSpec((batch, 3, n1, n2, n3), f32))
+
+
+# ---------------------------------------------------------------------------
+# Slab (grid) parallelism
+# ---------------------------------------------------------------------------
+
+
+def slab_shardings(mesh, grid_shape):
+    """(image spec, velocity spec) of the slab step: x1 over ``model`` where
+    it divides."""
+    m = "model" if grid_shape[0] % axis_size(mesh, "model") == 0 else None
+    return P(m, None, None), P(None, m, None, None)
+
+
+def slab_input_specs(grid_shape):
+    n1, n2, n3 = grid_shape
+    f32 = torch.float32
+    return dict(m0=TensorSpec((n1, n2, n3), f32), m1=TensorSpec((n1, n2, n3), f32),
+                v=TensorSpec((3, n1, n2, n3), f32))
+
+
+def slab_axis_name(mesh) -> str:
+    """The mesh axis carrying the x1 slabs: ``slab`` if present, else
+    ``model``, else the last axis."""
+    for name in ("slab", "model"):
+        if name in mesh.axis_names:
+            return name
+    return mesh.axis_names[-1]
+
+
+def ensemble_axis_name(mesh):
+    """The mesh axis over independent registrations: ``ensemble`` if
+    present, else ``data``, else None (a pure slab mesh)."""
+    for name in ("ensemble", "data"):
+        if name in mesh.axis_names:
+            return name
+    return None
 
 
 def _validate_slab(shape, nshards: int, halo: int) -> None:
@@ -63,6 +161,11 @@ def make_slab_step(cfg: _tr.TransportConfig, gn: _gn.GNConfig, shard: _halo.Shar
     ``gauss_newton.make_step``, so it goes into ``solve(step_fn=)`` and,
     through ``_make_batch_step(step_fn=)``, into ``solve_batch``."""
     return _gn.make_step(dataclasses.replace(cfg, shard=shard), gn)
+
+
+#: JAX's name of the slab step (there GSPMD shards the single-pair step by
+#: its inputs' shardings; here the shard enters through the config)
+slab_newton_step = make_slab_step
 
 
 def solve_slab(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,

@@ -40,6 +40,7 @@ layouts: each rank of a model group computes on its blocks.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
@@ -217,14 +218,23 @@ def cache_specs(cache_tree, mesh):
     return _map_with_path(one, cache_tree)
 
 
+#: Sequence-shard the residual stream at layer boundaries (default), or keep
+#: it whole on every rank of a model group (Megatron-classic: an all-reduce
+#: after each row-parallel product in place of a reduce-scatter and a
+#: gather). ``REPRO_RESIDUAL_SEQ=0``, read at import as in JAX, is the
+#: dry-run's A/B knob (``repro_torch.launch.dryrun``).
+RESIDUAL_SEQ_SHARD = os.environ.get("REPRO_RESIDUAL_SEQ", "1") != "0"
+
+
 def residual_constraint(mesh) -> Callable[[Sequence[int]], P]:
     """The residual stream's spec at a layer boundary, (B, S, D) -> spec:
     the sequence over ``model`` where it divides (Megatron-SP), else whole
-    on every rank of a model group. JAX's ``REPRO_RESIDUAL_SEQ=0`` (always
-    whole) serves its dry-run, which is not ported."""
+    on every rank of a model group; always whole when
+    :data:`RESIDUAL_SEQ_SHARD` is false."""
 
     def spec(shape):
-        return P(_dp_entry(mesh, shape[0]), _seq_entry(mesh, shape[1]), None)
+        seq = _seq_entry(mesh, shape[1]) if RESIDUAL_SEQ_SHARD else None
+        return P(_dp_entry(mesh, shape[0]), seq, None)
 
     return spec
 

@@ -83,6 +83,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> 
         raise ValueError("flash_attention takes q, k, v on one device")
 
 
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """K6's own demands (the CUDA and the fake route)."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head size {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+         q_offset: int = 0):
+    """(flops, bytes) one K6 call needs: 4 hd per (query, key) pair that is
+    not masked; q, k, v read once and the output written once."""
+    bh, s_q, hd = q.shape
+    s_kv = k.shape[1]
+    pairs = s_q * q_offset + s_q * (s_q + 1) / 2 if causal else s_q * s_kv
+    return 4.0 * hd * bh * pairs, float(2 * q.numel() * q.element_size()
+                                        + k.numel() * k.element_size()
+                                        + v.numel() * v.element_size())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, q_offset: int = 0) -> torch.Tensor:
     """(BH, S_q, hd) MHA attention against (BH, S_kv, hd) keys, the queries
@@ -97,16 +118,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention (K6) has no backward; differentiate "
                            "models.attention.blockwise_attention instead")
+    if counts.is_fake(q):
+        _check_kernel(q, k, v)
+        flops, nb = cost(q, k, v, causal, q_offset)
+        counts.fake_launch("flash_attention", flops, nb, tensor_core=q.dtype == torch.bfloat16)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         counts.bump("plain:flash_attention")
         return flash_attention_plain(q, k, v, causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     bh, s_len, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head size {HEAD_DIMS}, got {hd}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    _check_kernel(q, k, v)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention bf16 kernel needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)

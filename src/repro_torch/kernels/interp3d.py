@@ -256,13 +256,34 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda_coef(coef: torch.Tensor, what: str) -> None:
-    if coef.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda tensors, got {coef.device}")
+def _check_kernel_coef(coef: torch.Tensor, what: str) -> None:
+    """The kernels' own demands on the coefficients (the CUDA and the fake
+    route)."""
     if coef.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32 coefficients, got {coef.dtype}")
     if not coef.is_contiguous():
         raise ValueError(f"{what} kernel needs contiguous coefficients")
+
+
+def _check_cuda_coef(coef: torch.Tensor, what: str) -> None:
+    if coef.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {coef.device}")
+    _check_kernel_coef(coef, what)
+
+
+def gather_flops(n_out: int, support: int, n_fields: int = 1) -> float:
+    """Operations of a tensor-product gather of ``n_fields`` fields at
+    ``n_out`` points: a field and point, the S^2 weight pairs and S^3 taps
+    of two multiplies and an add (the bound of ``chip_smoke.py``'s
+    ``times``)."""
+    return float(n_out) * n_fields * (support ** 2 + 3 * support ** 3)
+
+
+#: K4's operations a query besides the taps: floor, fraction and weights on
+#: three axes (the B-spline's ~22 per axis; 3 for linear)
+QUERY_WEIGHT_OPS = {"linear": 9, "cubic_bspline": 66, "cubic_lagrange": 60}
+#: K3's epilogue operations a point
+EPILOGUE_OPS = {"inc_state": 3, "inc_adjoint": 6}
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +322,12 @@ def apply_plan_plain(coef: torch.Tensor, plan) -> torch.Tensor:
 
 def _plan_args(plan, device):
     """The plan's six pointers and its weight route (C suffix, count suffix)."""
+    route = _check_plan_tensors(plan, device)
+    return [t.data_ptr() for t in plan.idx] + [t.data_ptr() for t in plan.weights], route
+
+
+def _check_plan_tensors(plan, device):
+    """The kernels' demands on a plan; its weight route."""
     for t in plan.idx:
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
             raise ValueError("plan indices must be contiguous int32 on the "
@@ -313,20 +340,28 @@ def _plan_args(plan, device):
                              "the coefficients' device")
     if plan.support not in (2, 4):
         raise ValueError(f"plan support {plan.support} not in (2, 4)")
-    return [t.data_ptr() for t in plan.idx] + [t.data_ptr() for t in plan.weights], route
+    return route
 
 
 def apply_plan(coef: torch.Tensor, plan) -> torch.Tensor:
     """K2: evaluate ``coef`` ``(..., N1, N2, N3)`` through ``plan``; returns
     ``coef.shape[:-3] + plan.out_shape`` in float32."""
     _check_plan(coef, plan)
+    lead = tuple(coef.shape[:-3])
+    out_shape = tuple(plan.out_shape)
+    if counts.is_fake(coef):
+        _check_kernel_coef(coef, "apply_plan")
+        _, key_suffix = _check_plan_tensors(plan, coef.device)
+        out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
+        counts.fake_launch("apply_plan" + key_suffix,
+                           gather_flops(math.prod(out_shape), plan.support, math.prod(lead)),
+                           counts.nbytes(coef, out, *plan.idx, *plan.weights))
+        return out
     if coef.device.type == "cpu":
         counts.bump("plain:apply_plan" + _plain_suffix(plan.weights[0].dtype))
         return apply_plan_plain(coef, plan)
     _check_cuda_coef(coef, "apply_plan")
     ptrs, (c_suffix, key_suffix) = _plan_args(plan, coef.device)
-    lead = tuple(coef.shape[:-3])
-    out_shape = tuple(plan.out_shape)
     out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
     lib = _build.library("interp3d", _SIGNATURES)
     with torch.cuda.device(coef.device):
@@ -351,6 +386,13 @@ def apply_plan_fused_plain(coefs: torch.Tensor, plan, extra: torch.Tensor,
     return EPILOGUES[epilogue][1](acc[0], acc[1], extra, dt)
 
 
+def _check_extra(extra: torch.Tensor, coefs: torch.Tensor) -> None:
+    if (extra.dtype != torch.float32 or not extra.is_contiguous()
+            or extra.device != coefs.device):
+        raise ValueError("extra field must be contiguous float32 on the "
+                         "coefficients' device")
+
+
 def apply_plan_fused(coefs: torch.Tensor, plan, extra: torch.Tensor,
                      epilogue: str, dt: float) -> torch.Tensor:
     """K3: gather ``coefs`` ``(2, N1, N2, N3)`` through ``plan`` and apply the
@@ -367,15 +409,22 @@ def apply_plan_fused(coefs: torch.Tensor, plan, extra: torch.Tensor,
     if tuple(extra.shape) != out_shape:
         raise ValueError(f"extra field shape {tuple(extra.shape)} != plan output "
                          f"shape {out_shape}")
+    if counts.is_fake(coefs):
+        _check_kernel_coef(coefs, "apply_plan_fused")
+        _check_extra(extra, coefs)
+        _, key_suffix = _check_plan_tensors(plan, coefs.device)
+        out = torch.empty(out_shape, dtype=torch.float32, device=coefs.device)
+        m = math.prod(out_shape)
+        counts.fake_launch("apply_plan_fused:" + epilogue + key_suffix,
+                           gather_flops(m, plan.support, 2) + m * EPILOGUE_OPS[epilogue],
+                           counts.nbytes(coefs, extra, out, *plan.idx, *plan.weights))
+        return out
     if coefs.device.type == "cpu":
         counts.bump("plain:apply_plan_fused:" + epilogue
                     + _plain_suffix(plan.weights[0].dtype))
         return apply_plan_fused_plain(coefs, plan, extra, epilogue, dt)
     _check_cuda_coef(coefs, "apply_plan_fused")
-    if (extra.dtype != torch.float32 or not extra.is_contiguous()
-            or extra.device != coefs.device):
-        raise ValueError("extra field must be contiguous float32 on the "
-                         "coefficients' device")
+    _check_extra(extra, coefs)
     ptrs, (c_suffix, key_suffix) = _plan_args(plan, coefs.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=coefs.device)
     lib = _build.library("interp3d", _SIGNATURES)
@@ -434,6 +483,17 @@ def interp3d_plain(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspl
     return acc
 
 
+def _check_kernel_interp(coef: torch.Tensor, q: torch.Tensor, weight_dtype) -> str:
+    """K4's demands on its inputs; the count key's weight suffix."""
+    _check_kernel_coef(coef, "interp3d")
+    _, key_suffix = _weight_route(torch.float32 if weight_dtype is None
+                                  else weight_dtype)
+    if q.dtype != torch.float32 or not q.is_contiguous() or q.device != coef.device:
+        raise ValueError("query points must be contiguous float32 on the "
+                         "coefficients' device")
+    return key_suffix
+
+
 def interp3d(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspline",
              weight_dtype=None, *, box_blocks: torch.Tensor | None = None) -> torch.Tensor:
     """K4: interpolate ``coef`` ``(..., N1, N2, N3)`` (all leading fields
@@ -451,18 +511,23 @@ def interp3d(coef: torch.Tensor, q: torch.Tensor, basis: str = "cubic_bspline",
     """
     _check_interp_args(coef, q, basis)
     name = "interp3d:" + basis
+    lead = tuple(coef.shape[:-3])
+    out_shape = tuple(q.shape[1:])
+    if counts.is_fake(coef):
+        key_suffix = _check_kernel_interp(coef, q, weight_dtype)
+        out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
+        m = math.prod(out_shape)
+        counts.fake_launch(name + key_suffix,
+                           m * QUERY_WEIGHT_OPS[basis]
+                           + gather_flops(m, BASES[basis].support, math.prod(lead)),
+                           counts.nbytes(coef, q, out))
+        return out
     if coef.device.type == "cpu":
         counts.bump("plain:" + name + _plain_suffix(weight_dtype))
         return interp3d_plain(coef, q, basis, weight_dtype)
     _check_cuda_coef(coef, "interp3d")
-    _, key_suffix = _weight_route(torch.float32 if weight_dtype is None
-                                  else weight_dtype)
-    if q.dtype != torch.float32 or not q.is_contiguous() or q.device != coef.device:
-        raise ValueError("query points must be contiguous float32 on the "
-                         "coefficients' device")
+    key_suffix = _check_kernel_interp(coef, q, weight_dtype)
     n1, n2, n3 = (int(n) for n in coef.shape[-3:])
-    lead = tuple(coef.shape[:-3])
-    out_shape = tuple(q.shape[1:])
     out = torch.empty(lead + out_shape, dtype=torch.float32, device=coef.device)
     counter = _counter_arg(box_blocks, coef.device)
     lib = _build.library("interp3d", _SIGNATURES)

@@ -62,13 +62,25 @@ def _check_field(f: torch.Tensor, axis: int, taps: Sequence[float], what: str) -
         raise ValueError(f"{what} takes 1..{MAX_TAPS} taps, got {len(taps)}")
 
 
-def _check_cuda_field(f: torch.Tensor, what: str) -> None:
-    if f.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda tensors, got {f.device}")
+def _check_kernel_field(f: torch.Tensor, what: str) -> None:
+    """The kernel's own demands on its input (the CUDA and the fake route)."""
     if f.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32, got {f.dtype}")
     if not f.is_contiguous():
         raise ValueError(f"{what} kernel needs a contiguous tensor")
+
+
+def _check_cuda_field(f: torch.Tensor, what: str) -> None:
+    if f.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {f.device}")
+    _check_kernel_field(f, what)
+
+
+def stencil_flops(n_out: int, n_taps: int, symmetric: bool) -> float:
+    """Operations of one stencil pass: per output point a multiply-add a
+    tap pair and the pair's add or subtract (symmetric: 3 n_taps - 1;
+    antisymmetric with the scale: 3 n_taps + 1)."""
+    return float(n_out) * (3 * n_taps - 1 if symmetric else 3 * n_taps + 1)
 
 
 def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
@@ -77,6 +89,11 @@ def stencil_axis(f: torch.Tensor, axis: int, taps: Sequence[float],
     dimensions) of ``f``: ``(N1, N2, N3)`` or a stack ``(..., N1, N2, N3)``."""
     _check_field(f, axis, taps, "stencil_axis")
     name = "stencil_axis:" + ("prefilter" if symmetric else "fd8")
+    if counts.is_fake(f):
+        _check_kernel_field(f, "stencil_axis")
+        counts.fake_launch(name, stencil_flops(f.numel(), len(taps), symmetric),
+                           2 * counts.nbytes(f))
+        return torch.empty_like(f)
     if f.device.type == "cpu":
         counts.bump("plain:" + name)
         return stencil_axis_plain(f, axis, taps, symmetric, scale)
@@ -120,14 +137,20 @@ def stencil_valid(f: torch.Tensor, axis: int, taps: Sequence[float],
     if f.shape[f.dim() - 3 + axis] <= 2 * len(taps):
         raise ValueError(f"axis {axis} of {tuple(f.shape)} is too short for "
                          f"radius {len(taps)}")
+    out_shape = list(f.shape)
+    out_shape[f.dim() - 3 + axis] -= 2 * len(taps)
+    if counts.is_fake(f):
+        _check_kernel_field(f, "stencil_valid")
+        out = torch.empty(out_shape, dtype=f.dtype, device=f.device)
+        counts.fake_launch("stencil_valid:fd8", stencil_flops(out.numel(), len(taps), False),
+                           counts.nbytes(f, out))
+        return out
     if f.device.type == "cpu":
         counts.bump("plain:stencil_valid:fd8")
         return stencil_valid_plain(f, axis, taps, scale)
     _check_cuda_field(f, "stencil_valid")
     n1, n2, n3 = f.shape[-3:]
     batch = f.numel() // (n1 * n2 * n3)
-    out_shape = list(f.shape)
-    out_shape[f.dim() - 3 + axis] -= 2 * len(taps)
     out = torch.empty(out_shape, dtype=f.dtype, device=f.device)
     lib = _build.library("pencil", _SIGNATURES)
     tap_arr = (ctypes.c_float * len(taps))(*[float(t) for t in taps])

@@ -24,6 +24,8 @@ HW = dict(
     hbm_bw=3.35e12,          # HBM3 B/s
     link_bw=450e9,           # NVLink 4: 900 GB/s a card in both directions, per direction
 )
+#: the H100 SXM's HBM3 capacity (80 GB), the dry-run's memory limit
+HBM_BYTES = 80e9
 
 
 @dataclass

@@ -308,6 +308,20 @@ def make_prefill_step(model, mesh=None) -> Callable:
     return prefill
 
 
+def moe_decode_refusal(cfg, mesh, batch: int) -> Optional[str]:
+    """Why :func:`make_decode_step` refuses a decode of ``batch`` rows of a
+    MoE model on ``mesh`` (each rank's rows split the routing group of
+    ``min(128, batch)`` tokens: the routes and capacity would change), or
+    None."""
+    entry = shd._dp_entry(mesh, batch)
+    n = mesh_lib.axis_size(mesh, shd.entry_axes(entry))
+    group = min(_moe.GROUP_SIZE, batch)
+    if cfg.n_experts and (batch // n) % group:
+        return (f"a MoE model routes the {batch} decode tokens in groups of {group}: "
+                f"{batch // n} rows a rank ({n} ranks over {entry}) regroup them")
+    return None
+
+
 def make_decode_step(model, mesh, batch: int, seq: int) -> Callable:
     """``decode(params, cache, tokens, position) -> (logits (B, 1, V_padded)
     whole on every rank, cache)`` for a cache of ``model.make_cache(batch,
@@ -322,11 +336,9 @@ def make_decode_step(model, mesh, batch: int, seq: int) -> Callable:
     ctx = tp.context(mesh)
     lens = (model.dec_len(seq), seq) if model.cfg.is_encdec else (seq, 0)
     entry = shd._dp_entry(mesh, batch)
-    n = mesh_lib.axis_size(mesh, shd.entry_axes(entry))
-    group = min(_moe.GROUP_SIZE, batch)
-    if model.cfg.n_experts and (batch // n) % group:
-        raise ValueError(f"a MoE model routes the {batch} decode tokens in groups of {group}: "
-                         f"{batch // n} rows a rank ({n} ranks over {entry}) regroup them")
+    refusal = moe_decode_refusal(model.cfg, mesh, batch)
+    if refusal:
+        raise ValueError(refusal)
 
     def decode(params, cache, tokens, position):
         tokens = torch.as_tensor(tokens).to(model.dev)

@@ -9,6 +9,7 @@ replica its own groups. ``main(kind, out_path)`` runs one world and saves
 rank 0's records (and whatever every rank returns) with ``torch.save``.
 """
 
+import contextlib
 import dataclasses
 import sys
 
@@ -38,6 +39,12 @@ SIDE_ARCHS = ("whisper-large-v3", "internvl2-1b")
 #: (arch, mesh): every main arch on every mesh, the side archs on (1, 2)
 CASES = [(a, m) for a in MAIN_ARCHS for m in MESHES] + [(a, "1x2") for a in SIDE_ARCHS]
 ALL_ARCHS = MAIN_ARCHS + SIDE_ARCHS
+#: smollm with the residual stream whole on every rank of the model group
+#: (``REPRO_RESIDUAL_SEQ=0``: an all-reduce after each row-parallel product)
+WHOLE_CASES = [("smollm-135m", "1x2", "residual_whole"),
+               ("smollm-135m", "1x4", "residual_whole")]
+#: the cases of the serve world
+SERVE_CASES = CASES + WHOLE_CASES
 #: the train cases of each of the two train files' worlds
 TRAIN_GROUPS = {"dense": ("smollm-135m",) + SIDE_ARCHS,
                 "moe_ssm": ("deepseek-moe-16b", "mamba2-780m", "jamba-v0.1-52b")}
@@ -56,6 +63,17 @@ OPS_SHAPE = (2, 8, 12)
 
 def case_id(case):
     return "-".join(case)
+
+
+@contextlib.contextmanager
+def residual_of(case):
+    """The residual layout of ``case``: whole for a WHOLE_CASES case."""
+    saved = shd.RESIDUAL_SEQ_SHARD
+    shd.RESIDUAL_SEQ_SHARD = case not in WHOLE_CASES
+    try:
+        yield
+    finally:
+        shd.RESIDUAL_SEQ_SHARD = saved
 
 
 _MESH_CACHE = {}
@@ -254,7 +272,8 @@ def _compare(rec, ref):
 
 
 def train_cases(group):
-    return [c for c in CASES if c[0] in TRAIN_GROUPS[group]]
+    return ([c for c in CASES if c[0] in TRAIN_GROUPS[group]]
+            + (WHOLE_CASES if group == "dense" else []))
 
 
 def train_world(rank, nprocs, data, group):
@@ -267,7 +286,8 @@ def train_world(rank, nprocs, data, group):
     cases = train_cases(group)
     for i, c in enumerate(cases):
         cid = case_id(c)
-        records = _train_case(rank, c[0], c[1], data[c[0]])
+        with residual_of(c):
+            records = _train_case(rank, c[0], c[1], data[c[0]])
         if rank == 0 and c[0] not in out["first"]:
             out["first"][c[0]] = dict(case=cid, params=records[0]["before"].params,
                                       grads=records[0]["grads"],
@@ -367,8 +387,10 @@ def _moe_decode_refusal(inputs):
 
 def serve_world(rank, nprocs, inputs):
     out = {"cases": {}}
-    for case in CASES:
-        out["cases"][case_id(case)] = _serve_case(rank, case[0], case[1], inputs[case[0]])
+    for case in SERVE_CASES:
+        with residual_of(case):
+            out["cases"][case_id(case)] = _serve_case(rank, case[0], case[1],
+                                                      inputs[case[0]])
     out["bf16_cache"] = _serve_case(rank, "smollm-135m", "1x4", inputs["smollm-135m"],
                                     bf16_cache=True)
     out["moe_refusal"] = _moe_decode_refusal(inputs)

@@ -29,7 +29,8 @@ from repro_torch.launch import serve_lm
 from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _bad_imports(path):
@@ -90,6 +91,18 @@ def test_import_scan_covers_sharded_training_and_the_roofline():
     for name in ("launch/mesh", "distributed/sharding", "distributed/compression",
                  "roofline/__init__", "roofline/analysis", "roofline/lm"):
         assert f"src/repro_torch/{name}.py" in scanned
+
+
+def test_import_scan_covers_the_dryrun_and_the_examples():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("launch/dryrun", "roofline/counts", "roofline/debug", "kernels/counts",
+                 "distributed/claire_dist"):
+        assert f"src/repro_torch/{name}.py" in scanned
+    for name in ("quickstart", "registration_3d", "multires_registration",
+                 "multimodal_registration", "ensemble_registration", "serve_registration",
+                 "serve_lm", "train_lm"):
+        assert f"examples_torch/{name}.py" in scanned
+        assert (ROOT / "examples" / f"{name}.py").exists()
 
 
 def test_import_scan_covers_checkpoint_and_serve():

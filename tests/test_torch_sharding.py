@@ -158,6 +158,22 @@ def test_activation_rules_match_jax(mesh, monkeypatch):
             jshd.expert_constraint(stub)(types.SimpleNamespace(shape=d)))
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_residual_rule_with_the_residual_whole_matches_jax(mesh, monkeypatch):
+    """``REPRO_RESIDUAL_SEQ=0`` in both packages: the residual stream is
+    whole on every rank of a model group (batch over the data axes only)."""
+    stub = _stub(mesh)
+    monkeypatch.setattr(jshd, "NamedSharding", lambda m, spec: spec)
+    monkeypatch.setattr(jshd.jax.lax, "with_sharding_constraint", lambda x, spec: spec)
+    monkeypatch.setattr(jshd, "RESIDUAL_SEQ_SHARD", False)
+    monkeypatch.setattr(shd, "RESIDUAL_SEQ_SHARD", False)
+    for b, s, *_ in _ACTIVATIONS:
+        got = tuple(shd.residual_constraint(stub)((b, s, 64)))
+        assert got == tuple(jshd.residual_constraint(stub)(types.SimpleNamespace(
+            shape=(b, s, 64))))
+        assert got[1] is None
+
+
 def test_production_meshes_are_abstract():
     assert MESH_1POD.shape == {"data": 16, "model": 16} and MESH_1POD.abstract
     assert MESH_2POD.shape == {"pod": 2, "data": 16, "model": 16} and MESH_2POD.size == 512

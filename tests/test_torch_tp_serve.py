@@ -21,6 +21,9 @@ weights:
 * each decode step's logits within 1e-4 * max, with equal ids;
 * the gathered cache within 1e-5 * max of the unsharded one, leaf by leaf.
 
+smollm also runs on (1, 2) and (1, 4) with the residual stream whole on
+every rank (``REPRO_RESIDUAL_SEQ=0``), through the same checks.
+
 Also: smollm on (1, 4) with the served bf16 KV cache against the unsharded
 decode on it (the repo's bf16 logit check: atol 0.02, equal ids); a MoE
 decode whose rows split its token group over the data axes raises
@@ -129,7 +132,7 @@ def _logits_close(got, want):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("case", W.CASES, ids=W.case_id)
+@pytest.mark.parametrize("case", W.SERVE_CASES, ids=W.case_id)
 def test_sharded_prefill_and_decode_match_the_unsharded_ones(world, refs, case):
     got = world["ranks"][0]["cases"][W.case_id(case)]
     port, jx = _ref(refs, world, case[0])

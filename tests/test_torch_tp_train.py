@@ -6,7 +6,9 @@ One world of 4 gloo ranks (``tests/_torch_tp_ranks.py``, in a subprocess
 with a timeout) runs every case of this file in turn: the smoke config of
 smollm-135m (2 KV heads: head-parallel at m = 2, sequence-parallel at
 m = 4) on (1, 2), (1, 4) and (2, 2) over (data, model) and (2, 2, 1) over
-(pod, data, model); whisper-large-v3 and internvl2-1b on (1, 2).
+(pod, data, model), and on (1, 2) and (1, 4) with the residual stream
+whole on every rank (``REPRO_RESIDUAL_SEQ=0``); whisper-large-v3 and
+internvl2-1b on (1, 2).
 ``test_torch_tp_train_moe_ssm.py`` runs deepseek-moe-16b, mamba2-780m and
 jamba-v0.1-52b on the four meshes through the same checks. Three fp32
 steps each from the seeded state; each step, from the state it started
@@ -29,11 +31,14 @@ the numbers this file holds to the tolerances.
 
 Also from the world: each rank's matmul FLOPs of one smollm step
 (``FlopCounterMode``, forward and backward) are at most 0.6x the one-device
-step's on (1, 2) and 0.4x on (1, 4); on (1, 2) no Megatron-aligned leaf
-(gate, up, down, wq, wk, wv, wo, table) is gathered over ``model``.
+step's on (1, 2) and 0.4x on (1, 4), and the dry-run's count of rank 0's
+step in a fake world (``launch.dryrun``) equals them; on (1, 2) no
+Megatron-aligned leaf (gate, up, down, wq, wk, wv, wo, table) is gathered
+over ``model``.
 """
 
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -146,6 +151,24 @@ def test_tp_step_matches_jax_value_and_grad(world, oracle, arch):
 def test_each_rank_does_a_share_of_the_matmul_flops(world, mesh, limit):
     flops = world["ranks"][0]["flops"]
     assert 0 < flops[mesh] <= limit * flops["one"]
+
+
+@pytest.fixture(scope="module")
+def fake_flops(tmp_path_factory):
+    """Rank 0's FLOPs of the same step as the dry-run counts them, in a fake
+    world (``tests/_torch_dryrun_cells.py``, in a subprocess)."""
+    out = tmp_path_factory.mktemp("tp_flops") / "out.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, str(ROOT / "tests" / "_torch_dryrun_cells.py"),
+                          "tp_flops", str(out)], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, f"stderr:\n{res.stderr}\nstdout:\n{res.stdout}"
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "1x4"])
+def test_dryrun_counts_rank0s_flops(world, fake_flops, mesh):
+    assert fake_flops[mesh] == world["ranks"][0]["flops"][mesh] > 0
 
 
 def test_aligned_blocks_are_not_gathered(world):
