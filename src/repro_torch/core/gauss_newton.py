@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from .. import obs
 from . import gradient as _grad
 from . import grid as _grid
 from . import hessian as _hess
@@ -97,13 +98,14 @@ def newton_step(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float
         # plan per trial, shared by its nt SL steps.
         return _obj.objective(m0, m1, v + a * vt, beta, gamma, cfg)
 
-    a = torch.tensor(1.0, dtype=v.dtype, device=v.device)
-    j_trial = trial_obj(a)
-    k = 0
-    while bool(j_trial > j0 + gn.ls_c1 * a * gdotp) and k < gn.ls_max:
-        a = 0.5 * a
+    with obs.span("gn.line_search"):
+        a = torch.tensor(1.0, dtype=v.dtype, device=v.device)
         j_trial = trial_obj(a)
-        k += 1
+        k = 0
+        while obs.sync(bool, j_trial > j0 + gn.ls_c1 * a * gdotp) and k < gn.ls_max:
+            a = 0.5 * a
+            j_trial = trial_obj(a)
+            k += 1
     # If the search direction failed entirely, fall back to a small
     # preconditioned gradient step (keeps the iteration alive).
     v_new = v + a * vt if k < gn.ls_max else v - 0.1 * precond(gs.g)
@@ -187,25 +189,28 @@ def solve(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
                 eta = min(gn.forcing_max, eta0) if eta0 is not None else gn.forcing_max
             else:
                 eta = float(min(gn.forcing_max, (prev_gnorm / gnorm0_level) ** 0.5))
-            stats = step_fn(m0, m1, v, beta, gn.gamma, eta)
-            gnorm = float(stats.gnorm)
-            if gnorm0_level is None:
-                gnorm0_level = gnorm
-            if gnorm0_global is None:
-                gnorm0_global = gnorm
-            rel = gnorm / gnorm0_level if gnorm0_level > 0 else 0.0
-            history.append(dict(
-                level=level,
-                beta=beta,
-                gnorm=gnorm,
-                rel_grad=rel,
-                j=float(stats.j_total),
-                j_mismatch=float(stats.j_mismatch),
-                j_reg=float(stats.j_reg),
-                pcg_iters=int(stats.pcg_iters),
-                alpha=float(stats.alpha),
-                ls_evals=int(stats.ls_evals),
-            ))
+            # The step's span holds the driver's reads of its results: the
+            # first of them waits for the step's last kernels.
+            with obs.span("gn.step", step=len(history)):
+                stats = step_fn(m0, m1, v, beta, gn.gamma, eta)
+                gnorm = obs.sync(float, stats.gnorm)
+                if gnorm0_level is None:
+                    gnorm0_level = gnorm
+                if gnorm0_global is None:
+                    gnorm0_global = gnorm
+                rel = gnorm / gnorm0_level if gnorm0_level > 0 else 0.0
+                history.append(dict(
+                    level=level,
+                    beta=beta,
+                    gnorm=gnorm,
+                    rel_grad=rel,
+                    j=obs.sync(float, stats.j_total),
+                    j_mismatch=obs.sync(float, stats.j_mismatch),
+                    j_reg=obs.sync(float, stats.j_reg),
+                    pcg_iters=int(stats.pcg_iters),
+                    alpha=obs.sync(float, stats.alpha),
+                    ls_evals=int(stats.ls_evals),
+                ))
             if verbose:
                 h = history[-1]
                 print(f"[GN] lvl={level} beta={beta:.1e} it={total_iters:3d} "
@@ -292,7 +297,8 @@ def _make_batch_step(cfg: _tr.TransportConfig, gn: GNConfig, donate: bool = Fals
         rows, v_rows = [], []
         for b in range(m0.shape[0]):
             if active[b]:
-                rows.append(step(m0[b], m1[b], v[b], beta, gamma, float(eta[b])))
+                with obs.span("gn.step", lane=b):
+                    rows.append(step(m0[b], m1[b], v[b], beta, gamma, float(eta[b])))
                 v_rows.append(rows[-1].v_new)
             else:
                 rows.append(_row(prev, b))
@@ -316,7 +322,7 @@ def _make_batch_step(cfg: _tr.TransportConfig, gn: GNConfig, donate: bool = Fals
         gnorm0 = torch.where(use_ref, ref, gnorm)
         rel = torch.where(gnorm0 > 0, gnorm / gnorm0, 0.0)
         advance = act & (rel > gn.tol_rel_grad)
-        for b, adv in enumerate(advance.tolist()):
+        for b, adv in enumerate(obs.sync(torch.Tensor.tolist, advance)):
             if adv:
                 v[b].copy_(v_rows[b])
         return stats, advance
@@ -335,6 +341,11 @@ class BatchGNResult:
     converged: np.ndarray           # (B,) bool
     history: List[Dict[str, np.ndarray]]   # per evaluation, per-pair arrays
     wall_time_s: float
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A batch's per-pair numbers read to the host (a ``host.sync``)."""
+    return obs.sync(lambda t: t.cpu().numpy(), x)
 
 
 def solve_batch(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
@@ -393,7 +404,7 @@ def solve_batch(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
                                    np.asarray(ref_arg, dtype=np.float32), active, stats)
         else:
             stats = bstep(m0, m1, v, gn.beta, gn.gamma, eta, active, stats)
-        gnorm = stats.gnorm.cpu().numpy().astype(np.float64)
+        gnorm = _host(stats.gnorm).astype(np.float64)
         if gnorm0 is None:
             gnorm0 = gnorm.copy()
             if gnorm_ref is not None:
@@ -407,7 +418,7 @@ def solve_batch(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
         matvecs += np.where(active, pcg, 0)
         if donate:
             # The device applied the freeze mask to v; mirror its decision.
-            advance = adv_dev.cpu().numpy().astype(bool) & active
+            advance = _host(adv_dev).astype(bool) & active
             just_conv = active & ~advance
         else:
             just_conv = active & (rel <= gn.tol_rel_grad)
@@ -426,10 +437,10 @@ def solve_batch(m0: torch.Tensor, m1: torch.Tensor, cfg: _tr.TransportConfig,
             gnorm=gnorm,
             rel_grad=rel,
             active=active.copy(),
-            j=stats.j_total.cpu().numpy().astype(np.float64),
-            j_mismatch=stats.j_mismatch.cpu().numpy().astype(np.float64),
+            j=_host(stats.j_total).astype(np.float64),
+            j_mismatch=_host(stats.j_mismatch).astype(np.float64),
             pcg_iters=pcg,
-            alpha=stats.alpha.cpu().numpy().astype(np.float64),
+            alpha=_host(stats.alpha).astype(np.float64),
         ))
         if verbose:
             print(f"[GN-batch] it={len(history) - 1:3d} active={int(active.sum())} "

@@ -7,6 +7,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from . import derivatives as _deriv
 from . import measures as _meas
 from . import spectral as _spec
@@ -36,34 +37,35 @@ class GradientState:
 
 def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
              gamma: float, cfg: _tr.TransportConfig) -> GradientState:
-    foot_fwd = _tr.footpoints(v, cfg, sign=1.0)
-    foot_adj = _tr.footpoints(v, cfg, sign=-1.0)
-    divv = _deriv.div(v, scheme=cfg.deriv, shard=cfg.shard)
-    plan_fwd = _tr.interp_plan(foot_fwd, cfg)
-    plan_adj = _tr.interp_plan(foot_adj, cfg)
+    with obs.span("gn.gradient"):
+        foot_fwd = _tr.footpoints(v, cfg, sign=1.0)
+        foot_adj = _tr.footpoints(v, cfg, sign=-1.0)
+        divv = _deriv.div(v, scheme=cfg.deriv, shard=cfg.shard)
+        plan_fwd = _tr.interp_plan(foot_fwd, cfg)
+        plan_adj = _tr.interp_plan(foot_adj, cfg)
 
-    m_traj = _tr.solve_state(m0, v, cfg, foot=foot_fwd, plan=plan_fwd)
-    meas = _meas.resolve(cfg.measure)
-    m_final = m_traj[-1]
-    lam1 = meas.terminal_adjoint(m_final, m1, cfg)
-    lam_traj = _tr.solve_adjoint(lam1, v, cfg, foot_adj=foot_adj, divv=divv,
-                                 plan_adj=plan_adj)
+        m_traj = _tr.solve_state(m0, v, cfg, foot=foot_fwd, plan=plan_fwd)
+        meas = _meas.resolve(cfg.measure)
+        m_final = m_traj[-1]
+        lam1 = meas.terminal_adjoint(m_final, m1, cfg)
+        lam_traj = _tr.solve_adjoint(lam1, v, cfg, foot_adj=foot_adj, divv=divv,
+                                     plan_adj=plan_adj)
 
-    grad_m_traj = _tr.grad_traj(m_traj, cfg) if cfg.use_plan else None
-    body = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj)
-    g = _spec.apply_regop(v, beta, gamma, shard=cfg.shard) + body
+        grad_m_traj = _tr.grad_traj(m_traj, cfg) if cfg.use_plan else None
+        body = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj)
+        g = _spec.apply_regop(v, beta, gamma, shard=cfg.shard) + body
 
-    return GradientState(
-        g=g,
-        m_traj=m_traj,
-        lam_traj=lam_traj,
-        foot_fwd=foot_fwd,
-        foot_adj=foot_adj,
-        divv=divv,
-        j_mismatch=meas.value(m_final, m1, cfg),
-        j_reg=_spec.reg_energy(v, beta, gamma, shard=cfg.shard),
-        plan_fwd=plan_fwd,
-        plan_adj=plan_adj,
-        grad_m_traj=grad_m_traj,
-        measure_cache=meas.make_cache(m_final, m1, cfg),
-    )
+        return GradientState(
+            g=g,
+            m_traj=m_traj,
+            lam_traj=lam_traj,
+            foot_fwd=foot_fwd,
+            foot_adj=foot_adj,
+            divv=divv,
+            j_mismatch=meas.value(m_final, m1, cfg),
+            j_reg=_spec.reg_energy(v, beta, gamma, shard=cfg.shard),
+            plan_fwd=plan_fwd,
+            plan_adj=plan_adj,
+            grad_m_traj=grad_m_traj,
+            measure_cache=meas.make_cache(m_final, m1, cfg),
+        )

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import interp3d as _k
 from ..kernels import prefilter as _pf
 
@@ -156,26 +157,27 @@ def build_plan(q: torch.Tensor, method: str = "cubic_bspline", weight_dtype=None
     """
     if method not in METHODS:
         raise ValueError(f"unknown interpolation method: {method}")
-    support, base_offset = _k.BASES[method].support, _k.BASES[method].offset
-    shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
-    n1, n2, n3 = shape
-    qf = torch.floor(q)
-    t = q - qf
-    # Footpoints are negative near the low edge: floor, then floor-mod.
-    base = qf.to(torch.int32) + base_offset
-    tap = torch.arange(support, dtype=torch.int32, device=q.device).reshape(
-        (support,) + (1,) * (q.dim() - 1))
+    with obs.span("plan.build"):
+        support, base_offset = _k.BASES[method].support, _k.BASES[method].offset
+        shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
+        n1, n2, n3 = shape
+        qf = torch.floor(q)
+        t = q - qf
+        # Footpoints are negative near the low edge: floor, then floor-mod.
+        base = qf.to(torch.int32) + base_offset
+        tap = torch.arange(support, dtype=torch.int32, device=q.device).reshape(
+            (support,) + (1,) * (q.dim() - 1))
 
-    def _tap_idx(b, n, do_wrap):
-        i = b[None] + tap
-        return torch.remainder(i, n) if do_wrap else torch.clamp(i, 0, n - 1)
+        def _tap_idx(b, n, do_wrap):
+            i = b[None] + tap
+            return torch.remainder(i, n) if do_wrap else torch.clamp(i, 0, n - 1)
 
-    idx1 = _tap_idx(base[0], n1, wrap[0]) * (n2 * n3)
-    idx2 = _tap_idx(base[1], n2, wrap[1]) * n3
-    idx3 = _tap_idx(base[2], n3, wrap[2])
-    w = tuple(torch.stack(_k.plan_weights(method, t[a], weight_dtype), dim=0)
-              for a in range(3))
-    return InterpPlan((idx1, idx2, idx3), w, method, shape)
+        idx1 = _tap_idx(base[0], n1, wrap[0]) * (n2 * n3)
+        idx2 = _tap_idx(base[1], n2, wrap[1]) * n3
+        idx3 = _tap_idx(base[2], n3, wrap[2])
+        w = tuple(torch.stack(_k.plan_weights(method, t[a], weight_dtype), dim=0)
+                  for a in range(3))
+        return InterpPlan((idx1, idx2, idx3), w, method, shape)
 
 
 def apply_plan(plan: InterpPlan, coef: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from . import grid as _grid
 from . import spectral as _spec
 
@@ -33,22 +34,24 @@ def solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
           precond: Callable[[torch.Tensor], torch.Tensor], tol: float,
           max_iters: int = 500, shard=None) -> PCGResult:
     """Solve  M^-1 H x = M^-1 b  to  ||r|| <= tol * ||b||  (L2 on the grid)."""
-    inner = partial(_grid.inner, shape=b.shape[-3:], shard=shard)
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = inner(r, z)
-    bnorm = torch.sqrt(inner(b, b))
-    k = 0
-    while bool(residual(r, inner) > tol * bnorm) and k < max_iters:
-        hp = matvec(p)
-        x, r = update(x, r, p, hp, rz, inner)
+    with obs.span("pcg.solve"):
+        inner = partial(_grid.inner, shape=b.shape[-3:], shard=shard)
+        x = torch.zeros_like(b)
+        r = b
         z = precond(r)
-        p, rz = direction(r, z, p, rz, inner)
-        k += 1
-    rel = residual(r, inner) / torch.where(bnorm > 0, bnorm, 1.0)
-    return PCGResult(x=x, iters=k, rel_residual=rel)
+        p = z
+        rz = inner(r, z)
+        bnorm = torch.sqrt(inner(b, b))
+        k = 0
+        while obs.sync(bool, residual(r, inner) > tol * bnorm) and k < max_iters:
+            with obs.span("pcg.matvec"):
+                hp = matvec(p)
+            x, r = update(x, r, p, hp, rz, inner)
+            z = precond(r)
+            p, rz = direction(r, z, p, rz, inner)
+            k += 1
+        rel = residual(r, inner) / torch.where(bnorm > 0, bnorm, 1.0)
+        return PCGResult(x=x, iters=k, rel_residual=rel)
 
 
 def residual(r: torch.Tensor, inner) -> torch.Tensor:

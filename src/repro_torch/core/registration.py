@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import device as _device
+from .. import obs
 from ..distributed import claire_dist as _dist
 from ..distributed import group as _group
 from . import gauss_newton as _gn
@@ -49,10 +50,11 @@ VARIANTS: Dict[str, Dict[str, str]] = {
 
 def _score_single(m0, m1, v, cfg):
     """Post-solve quality metrics (warped image, rel. mismatch, det F)."""
-    m_warped = _metrics.warp_image(m0, v, cfg)
-    mis = float(_obj.relative_mismatch(m_warped, m1, m0))
-    detf = {k: float(val) for k, val in _metrics.detF_stats(v, cfg).items()}
-    return m_warped, mis, detf
+    with obs.span("register.score"):
+        m_warped = _metrics.warp_image(m0, v, cfg)
+        mis = obs.sync(float, _obj.relative_mismatch(m_warped, m1, m0))
+        detf = {k: obs.sync(float, val) for k, val in _metrics.detF_stats(v, cfg).items()}
+        return m_warped, mis, detf
 
 
 def _score_batch(m0, m1, v, cfg):
@@ -116,33 +118,36 @@ def register(
 
     ``m0, m1`` (and ``v0``) are numpy arrays or tensors; they are moved to
     ``device`` as float32. Returns the stationary velocity ``v`` and the
-    paper's quality metrics.
+    paper's quality metrics. Traced (``repro_torch.obs``), it is the span
+    ``register``, the root of the registration's spans.
     """
-    dev = _device.resolve(device)
-    cfg = make_transport_config(variant, nt=nt, mixed_precision=mixed_precision,
-                                use_plan=use_plan, measure=measure,
-                                use_fused_matvec=use_fused_matvec)
-    m0 = _device.as_tensor(m0, dev)
-    m1 = _device.as_tensor(m1, dev)
-    if v0 is not None:
-        v0 = _device.as_tensor(v0, dev)
-    gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
-                          max_newton=max_newton, continuation=continuation)
-    res = _gn.solve(m0, m1, cfg, gn_cfg, v0=v0, gnorm_ref=gnorm_ref,
-                    verbose=verbose)
-    m_warped, mis, detf = _score_single(m0, m1, res.v, cfg)
-    return RegistrationResult(
-        v=res.v,
-        m_warped=m_warped,
-        mismatch_rel=mis,
-        detF=detf,
-        iters=res.iters,
-        matvecs=res.matvecs,
-        rel_grad=res.rel_grad,
-        converged=res.converged,
-        wall_time_s=res.wall_time_s,
-        history=res.history,
-    )
+    with obs.span("register"):
+        dev = _device.resolve(device)
+        cfg = make_transport_config(variant, nt=nt, mixed_precision=mixed_precision,
+                                    use_plan=use_plan, measure=measure,
+                                    use_fused_matvec=use_fused_matvec)
+        with obs.span("register.h2d"):
+            m0 = _device.as_tensor(m0, dev)
+            m1 = _device.as_tensor(m1, dev)
+            if v0 is not None:
+                v0 = _device.as_tensor(v0, dev)
+        gn_cfg = _gn.GNConfig(beta=beta, gamma=gamma, tol_rel_grad=tol_rel_grad,
+                              max_newton=max_newton, continuation=continuation)
+        res = _gn.solve(m0, m1, cfg, gn_cfg, v0=v0, gnorm_ref=gnorm_ref,
+                        verbose=verbose)
+        m_warped, mis, detf = _score_single(m0, m1, res.v, cfg)
+        return RegistrationResult(
+            v=res.v,
+            m_warped=m_warped,
+            mismatch_rel=mis,
+            detF=detf,
+            iters=res.iters,
+            matvecs=res.matvecs,
+            rel_grad=res.rel_grad,
+            converged=res.converged,
+            wall_time_s=res.wall_time_s,
+            history=res.history,
+        )
 
 
 @dataclasses.dataclass

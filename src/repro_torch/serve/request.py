@@ -80,7 +80,9 @@ class RequestResult:
     wave_real: int = 0             # real requests in the wave
     wave_padded: int = 0           # wave width after padding
     # latency breakdown (seconds)
-    queue_s: float = 0.0           # submit -> wave dispatch
+    # submit -> the end of its wave's assembly; leaves out the wave's wait in
+    # the solver's queue, which the span ``serve.wave_wait`` measures
+    queue_s: float = 0.0
     solve_s: float = 0.0           # device solve (shared by the wave)
     collect_s: float = 0.0         # result materialization
     latency_s: float = 0.0         # submit -> future resolution

@@ -63,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from .. import device as _device
+from .. import obs
 from ..core import gauss_newton as _gn
 from ..core import metrics as _metrics
 from ..core import registration as _reg
@@ -140,7 +141,8 @@ class _AssembledWave(NamedTuple):
     gnorm_ref: np.ndarray         # (P,), NaN = cold (observed reference)
     warm: List[bool]
     visits: List[int]
-    t_dispatch: float
+    request_ids: tuple            # the real lanes' requests, for the spans
+    t_dispatch: float             # assembly done; the wave waits from here
     assemble_s: float
 
 
@@ -399,11 +401,14 @@ class Server:
         for i in range(real, padded):
             m0[i] = m0[0]
             m1[i] = m1[0]
+        wave_id = next(self._wave_ids)
+        request_ids = tuple(p.request_id for p in wave)
+        t1 = time.perf_counter()
+        obs.interval("serve.assemble", t0, t1, wave_id=wave_id, request_ids=request_ids)
         return _AssembledWave(
-            wave_id=next(self._wave_ids), key=key, pendings=wave,
+            wave_id=wave_id, key=key, pendings=wave,
             m0=m0, m1=m1, v0=v0, gnorm_ref=refs, warm=warm, visits=visits,
-            t_dispatch=time.perf_counter(),
-            assemble_s=time.perf_counter() - t0)
+            request_ids=request_ids, t_dispatch=t1, assemble_s=t1 - t0)
 
     # -- pipeline stage 2: solver (device) ----------------------------------
 
@@ -422,19 +427,23 @@ class Server:
             torch.cuda.set_device(dev)
         while True:
             item = self._wave_q.get()
+            t0 = time.perf_counter()
             if item is _SENTINEL:
                 if c.mesh is not None:
                     _send_stop()
                 self._collect_q.put(_SENTINEL)
                 return
             wave: _AssembledWave = item
+            tags = dict(wave_id=wave.wave_id, request_ids=wave.request_ids)
+            obs.interval("serve.wave_wait", wave.t_dispatch, t0, **tags)
             try:
                 cfg_t = _transport_cfg(c, wave.key)
-                t0 = time.perf_counter()
                 m0 = torch.from_numpy(wave.m0).to(dev)
                 m1 = torch.from_numpy(wave.m1).to(dev)
                 # the wave's own velocity: the donating step writes it
                 v0 = torch.from_numpy(wave.v0).to(dev, copy=True)
+                t1 = time.perf_counter()
+                obs.interval("serve.h2d", t0, t1, **tags)
                 if c.mesh is not None:
                     _send_wave(wave.key, m0, m1, v0, wave.gnorm_ref)
                     res = _slab_solve(c, self._gn, wave.key, m0, m1, v0, wave.gnorm_ref)
@@ -443,7 +452,9 @@ class Server:
                         m0, m1, cfg_t, self._gn, v0=v0, gnorm_ref=wave.gnorm_ref,
                         step_fn=self._step_for(wave.key), donate=True)
                 mismatch = _score(m0, m1, res.v, cfg_t)
-                solve_s = time.perf_counter() - t0
+                t2 = time.perf_counter()
+                obs.interval("serve.solve", t1, t2, **tags)
+                solve_s = t2 - t0
             except Exception as e:
                 for p in wave.pendings:
                     p.future.set_exception(e)
@@ -462,10 +473,12 @@ class Server:
             solved: _SolvedWave = item
             wave = solved.wave
             res = solved.result
+            tags = dict(wave_id=wave.wave_id, request_ids=wave.request_ids)
             try:
                 t0 = time.perf_counter()
                 v = res.v.detach().to("cpu", copy=True).numpy()
                 mismatch = solved.mismatch.cpu().numpy().astype(np.float64)
+                obs.interval("serve.d2h", t0, time.perf_counter(), **tags)
                 real = len(wave.pendings)
                 padded = wave.m0.shape[0]
                 collect_s = 0.0
@@ -523,6 +536,7 @@ class Server:
                     collect_s=collect_s,
                     iters=[int(x) for x in res.iters[:real]],
                     warm=list(wave.warm)))
+                obs.interval("serve.collect", t0, t0 + collect_s, **tags)
                 for p, rr in ready:
                     p.future.set_result(rr)
             except Exception as e:
