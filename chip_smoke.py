@@ -8,9 +8,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device   : the card's name, count and power limit.
 2. build    : nvcc of every ``src/repro_torch/csrc/*.cu`` for sm_90a, in
               parallel, with ptxas' registers and spills per kernel (parsed
-              for every K3 and K5 instantiation).
+              for every K3 and K5 instantiation and for build_plan_kernel).
 3. kernels  : each kernel against its plain PyTorch version on the same
-              inputs at size^3 (K1 FD8 per axis and the prefilter on K=2 and
+              inputs at size^3 (the plan build, bit for bit, for every
+              basis and weight type at the footpoints of a smooth size^3
+              velocity, the cubic B-spline on the slab path's clamped
+              (size+12) x size^2 field and at the footpoints of 64^3 and
+              128^3 velocities, the multires coarse levels, and at every
+              query set below; K1 FD8 per axis and the prefilter on K=2 and
               K=3 stacks, then both modes on every axis of the stacks in
               K1_EDGE_SHAPES, where its tiling is awkward; K5 on a
               (size+8)-row halo-extended field and on a 5-field stack of
@@ -223,8 +228,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               computes the same function, where there is one (K6: SDPA); K4
               also at uniform queries, K6 also with a query offset at
               K6_OFFSET (bound over the unmasked pairs, SDPA with the same
-              boolean mask), and ptxas' registers and spills of each K2 /
-              K4 variant.
+              boolean mask), the plan build (cubic B-spline, fp32 and bf16
+              weights, the other bases beside) against its byte bound, and
+              ptxas' registers and spills of each K2 / K4 variant.
 19. profile : the fp32, the plan-free and the slab solve once more under
               torch.profiler: device time by kernel group (NCCL included)
               and the device's idle share of the unprofiled wall time; the
@@ -301,6 +307,8 @@ _K2 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.
 _K3 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:339")
 _K4 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.py:150")
 _K6 = ("src/repro_torch/csrc/flashattn.cu", "src/repro/kernels/flashattn/flashattn.py:72")
+_PLAN = ("src/repro_torch/csrc/plan.cu",
+         "none (the JAX package's build_plan, src/repro/core/interp.py:265, is jnp)")
 K4_BASES = ("linear", "cubic_bspline", "cubic_lagrange")
 
 #: kernel (launch-count key) -> (source, Pallas kernel it replaces).
@@ -316,6 +324,8 @@ KERNELS = {
     **{f"interp3d:{b}{w}": _K4 for b in K4_BASES for w in ("", ":bf16")},
     "stencil_valid:fd8": _K5,
     "flash_attention": _K6,
+    "build_plan:cubic_bspline": _PLAN,
+    "build_plan:cubic_bspline:bf16": _PLAN,
 }
 
 _K1_KEYS = ["stencil_axis:fd8", "stencil_axis:prefilter"]
@@ -323,15 +333,18 @@ _FUSED = ["apply_plan_fused:inc_state", "apply_plan_fused:inc_adjoint"]
 #: path -> (entry-point keywords, kernels that must launch on it).
 PATHS = {
     "solve": (dict(variant="fd8-cubic", use_fused_matvec=True),
-              _K1_KEYS + ["apply_plan"] + _FUSED),
+              _K1_KEYS + ["build_plan:cubic_bspline", "apply_plan"] + _FUSED),
     "solve_planfree": (dict(variant="fd8-cubic", use_plan=False, mixed_precision=True),
-                       _K1_KEYS + ["apply_plan:bf16", "interp3d:cubic_bspline:bf16"]),
+                       _K1_KEYS + ["build_plan:cubic_bspline:bf16", "apply_plan:bf16",
+                                   "interp3d:cubic_bspline:bf16"]),
     "solve_mixed": (dict(variant="fd8-cubic", mixed_precision=True, use_fused_matvec=True),
-                    _K1_KEYS + ["apply_plan:bf16"] + [k + ":bf16" for k in _FUSED]),
+                    _K1_KEYS + ["build_plan:cubic_bspline:bf16", "apply_plan:bf16"]
+                    + [k + ":bf16" for k in _FUSED]),
 }
 #: the slab path (one-rank NCCL group) and the kernels it must launch.
 SLAB_KW = dict(variant="fd8-cubic", use_fused_matvec=True, halo=6)
-SLAB_REQUIRED = ["stencil_valid:fd8"] + _K1_KEYS + ["apply_plan"] + _FUSED
+SLAB_REQUIRED = (["stencil_valid:fd8"] + _K1_KEYS + ["build_plan:cubic_bspline", "apply_plan"]
+                 + _FUSED)
 #: the paths of the facade, the measures, the batch and the ensemble x slab
 #: layout: kernels that must launch (NCC adds K4 linear for the facade's Dice)
 PLAN_FUSED = _K1_KEYS + ["apply_plan"] + _FUSED
@@ -590,6 +603,25 @@ def nbytes(*tensors) -> int:
 
 def plan_bytes(plan) -> int:
     return nbytes(*plan.idx, *plan.weights)
+
+
+def plan_differ(got, ref) -> dict:
+    """The kernel's plan against the plain build's ``(idx, weights)``, bit
+    for bit: elements whose bits differ (weights viewed as integers of their
+    width, so -0 against +0 shows) and the largest absolute gap."""
+    import torch
+
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def bits(t):
+        return t.view(view.get(t.dtype, t.dtype))
+
+    pairs = list(zip(got.idx, ref[0])) + list(zip(got.weights, ref[1]))
+    differ = sum(int((bits(g) != bits(r)).sum()) for g, r in pairs)
+    gap = max(float((g.double() - r.double()).abs().max()) for g, r in pairs)
+    return dict(differ=differ, max_abs_err=gap,
+                ok=differ == 0 and all(g.dtype == r.dtype and g.shape == r.shape
+                                       for g, r in pairs))
 
 
 def circular_conv(taps, symmetric: bool, scale: float, axis: int, device):
@@ -996,6 +1028,7 @@ def _kernel_group(key: str) -> str:
                          ("K3 apply_plan_fused", ("apply_plan_fused",)),
                          ("K2 apply_plan", ("apply_plan_kernel",)),
                          ("K4 interp3d", ("interp3d_kernel",)),
+                         ("plan build", ("build_plan_kernel",)),
                          ("cuFFT", ("fft",)),
                          ("reductions", ("reduce", "softmax")),
                          ("cuBLAS gemv", ("gemv",)),
@@ -1331,6 +1364,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flashattn as FA
     from repro_torch.kernels import interp3d as K
     from repro_torch.kernels import pencil as P
+    from repro_torch.kernels import plan as KP
     from repro_torch.kernels import prefilter as PF
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import register as CLI
@@ -1365,10 +1399,15 @@ def main(argv=None) -> int:
                         ("apply_plan_fused",)),
         **ptxas_kernels(_build.BUILD_LOG.get("pencil", {}).get("ptxas", []),
                         ("stencil_valid",))}
+    ptxas_plan = ptxas_kernels(_build.BUILD_LOG.get("plan", {}).get("ptxas", []),
+                               ("build_plan_kernel",))
     emit("build", seconds=time.perf_counter() - t0, dir=str(_build.build_dir()),
          nvcc={k: v for k, v in _build.BUILD_LOG.items()}, ptxas_k3_k5=ptxas_k3_k5,
          k3_k5_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
-                               for v in ptxas_k3_k5.values()))
+                               for v in ptxas_k3_k5.values()),
+         ptxas_plan=ptxas_plan,
+         plan_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                              for v in ptxas_plan.values()))
 
     # 3. kernels vs plain at size^3
     gen = torch.Generator().manual_seed(args.seed)
@@ -1439,6 +1478,29 @@ def main(argv=None) -> int:
     plans = {"": I.build_plan(foot, "cubic_bspline"),
              ":bf16": I.build_plan(foot, "cubic_bspline", bf16)}
 
+    def build_check(label, q, basis, wd, fshape, wrap=(True, True, True)):
+        sfx = ":bf16" if wd is not None else ""
+        got = I.build_plan(q, basis, wd, shape=fshape, wrap=wrap)
+        cmp = plan_differ(got, KP.build_plan_plain(q, basis, wd, tuple(fshape), wrap))
+        checks.append(dict(case=f"build_plan {basis}{sfx} {label}", **cmp))
+        key = f"build_plan:{basis}{sfx}"
+        errs[key] = max(errs.get(key, 0.0), cmp["max_abs_err"])
+
+    # The plan build at the main path's shapes, bit for bit: the footpoints
+    # (every basis and weight type), the slab path's clamped field and the
+    # multires coarse levels' footpoints (64^3, 128^3)
+    for basis in K4_BASES:
+        for wd in (None, bf16):
+            build_check(f"at the footpoints {list(shape)}", foot, basis, wd, shape)
+    coarse_gen = torch.Generator().manual_seed(args.seed + 5)
+    for coarse in (64, 128):
+        v_c = S.random_velocity(coarse_gen, (coarse,) * 3, amplitude=0.6, device=dev)
+        foot_c = SL.trace_characteristic(v_c, 0.25, "cubic_bspline", 1.0)
+        for wd in (None, bf16):
+            build_check(f"at the footpoints {[coarse] * 3}", foot_c, "cubic_bspline", wd,
+                        (coarse,) * 3)
+        del v_c, foot_c
+
     def plan_check(key, label, got, ref):
         err = max_err(got, ref)
         tol = PLAN_REL * max(float(ref.abs().max()), 1.0)
@@ -1464,6 +1526,8 @@ def main(argv=None) -> int:
     slab_foot = torch.stack([foot[0] + halo, foot[1], foot[2]])
     slab_coef = PF.prefilter3d(torch.randn((2, n + 2 * halo, n, n), generator=gen).to(dev))
     for sfx, wd in (("", None), (":bf16", bf16)):
+        build_check(f"on the slab field {[n + 2 * halo, n, n]}, x1 clamped", slab_foot,
+                    "cubic_bspline", wd, (n + 2 * halo, n, n), (False, True, True))
         slab_plan = I.build_plan(slab_foot, "cubic_bspline", wd, shape=(n + 2 * halo, n, n),
                                  wrap=(False, True, True))
         k3_check(f"on the slab plan {list(slab_coef.shape)}", slab_coef, slab_plan, extra, sfx)
@@ -1493,6 +1557,7 @@ def main(argv=None) -> int:
                     K.interp3d(fields[1], q, basis, wd, box_blocks=counter)
                     box_shares[f"interp3d:{basis}{sfx} at {qname}"] = (
                         int(counter.item()) / K.tile_blocks(q.shape[1:], K.TILE_3D_BOX))
+                build_check(f"at {qname}", q, basis, wd, fshape)
                 plan = I.build_plan(q, basis, wd, shape=fshape)
                 for k, coef in fields.items():
                     plan_check("apply_plan" + sfx, f"apply_plan {basis}{sfx} K={k} at {qname}",
@@ -2387,6 +2452,25 @@ def main(argv=None) -> int:
                 bound=bound_ms(plan_bytes(plan) + nbytes(coef2, extra) + 4 * m,
                                K.gather_flops(m, 4, 2) + m * epi_ops),
                 shape=list(coef2.shape))
+    # the plan build at the footpoints: its byte bound reads the queries and
+    # writes the plan once, its operations are K4's weight work a query
+    for sfx, wd in (("", None), (":bf16", bf16)):
+        others = {}
+        for basis in K4_BASES:
+            ms = timed(lambda b=basis, w=wd: I.build_plan(foot, b, w), reps)
+            if basis != "cubic_bspline":
+                others[basis] = ms
+                continue
+            rows["build_plan:cubic_bspline" + sfx] = dict(
+                ms=ms,
+                plain_ms=timed(lambda w=wd: KP.build_plan_plain(foot, basis, w, shape,
+                                                                (True, True, True)),
+                               plain_reps),
+                library_ms=None,
+                bound=bound_ms(nbytes(foot) + plan_bytes(plans[sfx]),
+                               m * K.QUERY_WEIGHT_OPS[basis]),
+                shape=list(foot.shape))
+        rows["build_plan:cubic_bspline" + sfx]["other_bases_ms"] = others
     pad = SL.DISPLACEMENT_BOUND + 1
     uniform_q = k24_query_sets(foot, args.seed, dev)["uniform"][1]
     for basis in K4_BASES:

@@ -7,10 +7,11 @@ Methods (the paper's kernel family): ``linear`` (8 taps), ``cubic_lagrange``
 units, with periodic wrap.
 
 Two paths: plan-free ``interp_field`` (kernel K4 on the card), and plans,
-``build_plan`` once per footpoint set then ``apply_plan`` (kernel K2). Each
-kernel takes its plain version on the CPU. ``weight_dtype`` (None or
-``torch.bfloat16``) is the mixed-precision scheme of the paper: only the
-basis weights are downcast, the field keeps its dtype, accumulation is fp32.
+``build_plan`` once per footpoint set (``build_plan_kernel``) then
+``apply_plan`` (kernel K2). Each kernel takes its plain version on the CPU.
+``weight_dtype`` (None or ``torch.bfloat16``) is the mixed-precision scheme
+of the paper: only the basis weights are downcast, the field keeps its
+dtype, accumulation is fp32.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .. import obs
 from ..kernels import interp3d as _k
+from ..kernels import plan as _kp
 from ..kernels import prefilter as _pf
 
 # ---------------------------------------------------------------------------
@@ -153,31 +155,13 @@ def build_plan(q: torch.Tensor, method: str = "cubic_bspline", weight_dtype=None
     clamp into the field: the slab-parallel solve's x1 axis is a
     halo-extended, non-periodic slab. K2 and K3 take either plan unchanged,
     since the wrap or clamp is baked into the flat indices. ``weight_dtype``
-    downcasts the weights only (fp32 when None).
+    downcasts the weights only (fp32 when None). One kernel on the card
+    (``kernels/plan.py``), its plain version on the CPU.
     """
-    if method not in METHODS:
-        raise ValueError(f"unknown interpolation method: {method}")
+    shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
     with obs.span("plan.build"):
-        support, base_offset = _k.BASES[method].support, _k.BASES[method].offset
-        shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
-        n1, n2, n3 = shape
-        qf = torch.floor(q)
-        t = q - qf
-        # Footpoints are negative near the low edge: floor, then floor-mod.
-        base = qf.to(torch.int32) + base_offset
-        tap = torch.arange(support, dtype=torch.int32, device=q.device).reshape(
-            (support,) + (1,) * (q.dim() - 1))
-
-        def _tap_idx(b, n, do_wrap):
-            i = b[None] + tap
-            return torch.remainder(i, n) if do_wrap else torch.clamp(i, 0, n - 1)
-
-        idx1 = _tap_idx(base[0], n1, wrap[0]) * (n2 * n3)
-        idx2 = _tap_idx(base[1], n2, wrap[1]) * n3
-        idx3 = _tap_idx(base[2], n3, wrap[2])
-        w = tuple(torch.stack(_k.plan_weights(method, t[a], weight_dtype), dim=0)
-                  for a in range(3))
-        return InterpPlan((idx1, idx2, idx3), w, method, shape)
+        idx, w = _kp.build_plan(q, method, weight_dtype, shape, wrap)
+        return InterpPlan(idx, w, method, shape)
 
 
 def apply_plan(plan: InterpPlan, coef: torch.Tensor) -> torch.Tensor:

@@ -270,9 +270,12 @@ def test_fake_routes_of_the_gathers():
         return K.apply_plan(_fake(2, 8, 8, 8), I.build_plan(q, "cubic_bspline"))
 
     shape, launches, seen = _fake_launch(k2)
-    assert shape == (2, 8, 8, 8) and launches == {"fake:apply_plan": 1}
-    assert seen[0][1] == 512 * 2 * (16 + 192)
-    assert seen[0][2] == (2 * 512 + 2 * 512 + 6 * 4 * 512) * 4
+    assert shape == (2, 8, 8, 8)
+    assert launches == {"fake:build_plan:cubic_bspline": 1, "fake:apply_plan": 1}
+    # the plan's build: q read, 3 x 4 indices and weights written a point
+    assert seen[0] == ("build_plan:cubic_bspline", 512 * 66.0, (3 + 24) * 512 * 4.0, False)
+    assert seen[1][1] == 512 * 2 * (16 + 192)
+    assert seen[1][2] == (2 * 512 + 2 * 512 + 6 * 4 * 512) * 4
 
     def k3():
         q = torch.zeros((3, 8, 8, 8))
@@ -280,8 +283,10 @@ def test_fake_routes_of_the_gathers():
                                   _fake(8, 8, 8), "inc_adjoint", 0.25)
 
     shape, launches, seen = _fake_launch(k3)
-    assert shape == (8, 8, 8) and launches == {"fake:apply_plan_fused:inc_adjoint": 1}
-    assert seen[0][1] == 512 * (2 * (16 + 192) + 6)
+    assert shape == (8, 8, 8)
+    assert launches == {"fake:build_plan:cubic_bspline": 1,
+                        "fake:apply_plan_fused:inc_adjoint": 1}
+    assert seen[1][1] == 512 * (2 * (16 + 192) + 6)
 
     shape, launches, seen = _fake_launch(
         lambda: K.interp3d(_fake(8, 8, 8), _fake(3, 4, 4, 4), "linear"))

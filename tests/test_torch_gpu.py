@@ -11,7 +11,8 @@ file does not import):
 Tolerances: K1 and K5 rtol 1e-5 / atol 1e-4; K2, K3 and K4 (fp32 and bf16
 weights) 1e-5 * max(|plain|, 1). The bf16 weights of kernel and plain version are
 bit-equal (``kernels/interp3d.py``), so the bound is fp32 accumulation noise.
-K6: fp32 ``tests/test_flashattn.py``'s rtol = atol = 2e-4; bf16 rtol 8e-3
+The plan build (``build_plan_kernel``) is held to the plain build on the
+same card bit for bit. K6: fp32 ``tests/test_flashattn.py``'s rtol = atol = 2e-4; bf16 rtol 8e-3
 (one ulp of the bf16 output, at most 2^-7 |x|: kernel and plain version both
 accumulate in fp32 and round once) and atol 1e-4 (fp32 order noise of outputs
 near 0), with at most 5% of the elements differing at all.
@@ -30,6 +31,7 @@ from repro_torch import serve as SV
 from repro_torch.configs import ARCHS
 from repro_torch.core import interp as I
 from repro_torch.core import registration as R
+from repro_torch.core import semilag as SL
 from repro_torch.data import synthetic as S
 from repro_torch.distributed import group as G
 from repro_torch.kernels import counts
@@ -37,6 +39,7 @@ from repro_torch.kernels import fd8 as FD8
 from repro_torch.kernels import flashattn as FA
 from repro_torch.kernels import interp3d as K
 from repro_torch.kernels import pencil as P
+from repro_torch.kernels import plan as KP
 from repro_torch.kernels import prefilter as PF
 from repro_torch.launch import serve_lm
 from repro_torch.models import build_model
@@ -215,6 +218,109 @@ def test_k4_matches_plain(cuda, basis, kind, weight_dtype):
         assert 0.0 < share < 1.0
     else:
         assert share == 1.0
+
+
+def _plan_bits(idx, weights):
+    """A plan's tensors as bit patterns: weights viewed as integers of their
+    width, so that -0 against +0 and NaN payloads show."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return [t.clone() for t in idx] + [w.view(view[w.dtype]).clone() for w in weights]
+
+
+def _assert_plan_bit_equal(q, method, weight_dtype, shape, wrap=(True, True, True)):
+    """The kernel's plan against the plain build run on the same card."""
+    got = I.build_plan(q, method, weight_dtype, shape=shape, wrap=wrap)
+    ref = KP.build_plan_plain(q, method, weight_dtype, shape, wrap)
+    assert [w.dtype for w in got.weights] == [w.dtype for w in ref[1]]
+    for g, r in zip(_plan_bits(got.idx, got.weights), _plan_bits(*ref)):
+        assert g.shape == r.shape and g.is_contiguous()
+        assert torch.equal(g, r), f"{int((g != r).sum())} of {g.numel()} differ"
+
+
+@pytest.mark.parametrize("wrap", [(True, True, True), (False, True, True)], ids=["TTT", "FTT"])
+@pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("method", I.METHODS)
+@pytest.mark.parametrize("kind", QUERY_SETS)
+def test_build_plan_kernel_matches_plain_bit_for_bit(cuda, kind, method, weight_dtype, wrap):
+    shape, q = _query_set(kind, cuda, seed=3)
+    _assert_plan_bit_equal(q, method, weight_dtype, shape, wrap)
+
+
+@pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("method", I.METHODS)
+def test_build_plan_kernel_edge_queries(cuda, method, weight_dtype):
+    """A halo-extended field (x1 clamped, the output its interior), queries
+    exactly on integers (t = 0, also -0.0), and an output of 3 * 31 points
+    (not a multiple of 4: the scalar path and its tail)."""
+    halo, interior = 6, (20,) + SHAPE[1:]
+    field = (interior[0] + 2 * halo,) + interior[1:]
+    _, q = _query_set("near", cuda, seed=5)
+    q = q[:, :interior[0]].clone()
+    q[0] += halo
+    _assert_plan_bit_equal(q, method, weight_dtype, field, (False, True, True))
+    q_int = torch.floor(_queries(cuda, seed=6))
+    q_int[:, 0] = -0.0
+    _assert_plan_bit_equal(q_int, method, weight_dtype, SHAPE)
+    _assert_plan_bit_equal(_queries(cuda, seed=7)[:, :3, :1, :31].contiguous(), method,
+                           weight_dtype, SHAPE)
+
+
+@pytest.mark.parametrize("weight_dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("method", I.METHODS)
+def test_build_plan_kernel_at_256_footpoints(cuda, method, weight_dtype):
+    """The main path's shape: RK2 footpoints of a smooth 256^3 velocity."""
+    shape = (256, 256, 256)
+    v = S.random_velocity(torch.Generator().manual_seed(0), shape, amplitude=0.6, device=cuda)
+    foot = SL.trace_characteristic(v, 0.25, "cubic_bspline", 1.0)
+    del v
+    _assert_plan_bit_equal(foot, method, weight_dtype, shape)
+
+
+def _plain_build(q, method, weight_dtype=None, shape=None, wrap=(True, True, True)):
+    shape = tuple(int(n) for n in (shape if shape is not None else q.shape[1:]))
+    return KP.build_plan_plain(q, method, weight_dtype, shape, wrap)
+
+
+@pytest.mark.parametrize("kw", [dict(use_fused_matvec=True),
+                                dict(use_plan=False, mixed_precision=True)],
+                         ids=["fused_fp32", "planfree_bf16"])
+def test_solve_with_kernel_plans_equals_solve_with_plain_plans(cuda, kw, monkeypatch):
+    """A 32^3 solve takes the same Newton and PCG counts and ends at the
+    same v, bit for bit, with the kernel's plans and with the plain build
+    run on the card in its place."""
+    pair = S.make_pair(0, (32, 32, 32), device=cuda)
+    counts.reset()
+    got = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    torch.cuda.synchronize()
+    launched = counts.snapshot()
+    monkeypatch.setattr(KP, "build_plan", _plain_build)
+    ref = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    assert _counts(got) == _counts(ref) and got.matvecs == ref.matvecs
+    assert torch.equal(got.v.view(torch.int32), ref.v.view(torch.int32))
+    key = "build_plan:cubic_bspline" + (":bf16" if kw.get("mixed_precision") else "")
+    assert launched.get(key, 0) > 0
+    assert not [k for k in launched if k.startswith("plain:")]
+
+
+def test_build_plan_launches_are_counted(cuda):
+    q = _queries(cuda)
+    counts.reset()
+    for method in I.METHODS:
+        for wd in (None, torch.bfloat16):
+            I.build_plan(q, method, wd)
+    torch.cuda.synchronize()
+    assert counts.snapshot() == {f"build_plan:{m}{w}": 1 for m in I.METHODS
+                                 for w in ("", ":bf16")}
+
+
+def test_build_plan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q = _queries(cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        I.build_plan(q.double(), "linear")
+    with pytest.raises(ValueError, match="contiguous float32"):
+        I.build_plan(q.transpose(1, 3), "linear")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        I.build_plan(q, "linear", torch.float16)
 
 
 def test_k4_on_two_cards(cuda):
