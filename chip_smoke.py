@@ -8,9 +8,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device   : the card's name, count and power limit.
 2. build    : nvcc of every ``src/repro_torch/csrc/*.cu`` for sm_90a, in
               parallel, with ptxas' registers and spills per kernel (parsed
-              for every K3 and K5 instantiation and for build_plan_kernel).
+              for every K3 and K5 instantiation, build_plan_kernel and the
+              two contraction kernels).
 3. kernels  : each kernel against its plain PyTorch version on the same
-              inputs at size^3 (the plan build, bit for bit, for every
+              inputs at size^3 (the matvec's contractions, bit for bit, at
+              size^3 and nt = 4, at nt = 1, 6 and 12 on 32^3, on an odd grid
+              and with a misaligned adjoint field; the plan build, bit for bit, for every
               basis and weight type at the footpoints of a smooth size^3
               velocity, the cubic B-spline on the slab path's clamped
               (size+12) x size^2 field and at the footpoints of 64^3 and
@@ -309,6 +312,9 @@ _K4 = ("src/repro_torch/csrc/interp3d.cu", "src/repro/kernels/interp3d/interp3d.
 _K6 = ("src/repro_torch/csrc/flashattn.cu", "src/repro/kernels/flashattn/flashattn.py:72")
 _PLAN = ("src/repro_torch/csrc/plan.cu",
          "none (the JAX package's build_plan, src/repro/core/interp.py:265, is jnp)")
+_CONTRACT = ("src/repro_torch/csrc/contract.cu",
+             "none (the JAX package's einsums in src/repro/core/hessian.py and transport.py, "
+             "left to XLA)")
 K4_BASES = ("linear", "cubic_bspline", "cubic_lagrange")
 
 #: kernel (launch-count key) -> (source, Pallas kernel it replaces).
@@ -326,28 +332,33 @@ KERNELS = {
     "flash_attention": _K6,
     "build_plan:cubic_bspline": _PLAN,
     "build_plan:cubic_bspline:bf16": _PLAN,
+    "traj_source": _CONTRACT,
+    "traj_body_force": _CONTRACT,
 }
 
 _K1_KEYS = ["stencil_axis:fd8", "stencil_axis:prefilter"]
+#: the contractions: each Hessian matvec launches both, each gradient the body force
+_CONTRACTIONS = ["traj_source", "traj_body_force"]
 _FUSED = ["apply_plan_fused:inc_state", "apply_plan_fused:inc_adjoint"]
 #: path -> (entry-point keywords, kernels that must launch on it).
 PATHS = {
     "solve": (dict(variant="fd8-cubic", use_fused_matvec=True),
-              _K1_KEYS + ["build_plan:cubic_bspline", "apply_plan"] + _FUSED),
+              _K1_KEYS + ["build_plan:cubic_bspline", "apply_plan"] + _FUSED + _CONTRACTIONS),
     "solve_planfree": (dict(variant="fd8-cubic", use_plan=False, mixed_precision=True),
                        _K1_KEYS + ["build_plan:cubic_bspline:bf16", "apply_plan:bf16",
-                                   "interp3d:cubic_bspline:bf16"]),
+                                   "interp3d:cubic_bspline:bf16"] + _CONTRACTIONS),
     "solve_mixed": (dict(variant="fd8-cubic", mixed_precision=True, use_fused_matvec=True),
                     _K1_KEYS + ["build_plan:cubic_bspline:bf16", "apply_plan:bf16"]
-                    + [k + ":bf16" for k in _FUSED]),
+                    + [k + ":bf16" for k in _FUSED] + _CONTRACTIONS),
 }
 #: the slab path (one-rank NCCL group) and the kernels it must launch.
 SLAB_KW = dict(variant="fd8-cubic", use_fused_matvec=True, halo=6)
-SLAB_REQUIRED = (["stencil_valid:fd8"] + _K1_KEYS + ["build_plan:cubic_bspline", "apply_plan"]
+SLAB_REQUIRED = (["stencil_valid:fd8"] + _K1_KEYS + _CONTRACTIONS
+                 + ["build_plan:cubic_bspline", "apply_plan"]
                  + _FUSED)
 #: the paths of the facade, the measures, the batch and the ensemble x slab
 #: layout: kernels that must launch (NCC adds K4 linear for the facade's Dice)
-PLAN_FUSED = _K1_KEYS + ["apply_plan"] + _FUSED
+PLAN_FUSED = _K1_KEYS + ["apply_plan"] + _FUSED + _CONTRACTIONS
 NCC_REQUIRED = PLAN_FUSED + ["interp3d:linear"]
 #: NGF's Newton caps. At 256^3 its fourth step already meets non-positive
 #: curvature, PCG runs to its 500-iteration cap (~12 s a step on the H100)
@@ -467,7 +478,7 @@ TRAIN_UPDATE_REL = 1e-6
 #: step, 6 PCG matvecs, one line-search trial) on two seeded pairs, the
 #: kernels it must launch (the dry-run's transport: plans, no fused matvec)
 ENSEMBLE_PAIRS = 2
-ENSEMBLE_REQUIRED = _K1_KEYS + ["apply_plan"]
+ENSEMBLE_REQUIRED = _K1_KEYS + ["apply_plan"] + _CONTRACTIONS
 #: dryrun: the records of JAX's test cell, one train cell and both
 #: registration modes, each a ``python -m repro_torch.launch.dryrun`` run
 DRYRUN_RECORDS = {
@@ -1360,6 +1371,7 @@ def main(argv=None) -> int:
     from repro_torch.distributed import claire_dist as CD
     from repro_torch.distributed import group as G
     from repro_torch.kernels import _build, counts
+    from repro_torch.kernels import contract as KC
     from repro_torch.kernels import fd8 as FD8
     from repro_torch.kernels import flashattn as FA
     from repro_torch.kernels import interp3d as K
@@ -1401,13 +1413,18 @@ def main(argv=None) -> int:
                         ("stencil_valid",))}
     ptxas_plan = ptxas_kernels(_build.BUILD_LOG.get("plan", {}).get("ptxas", []),
                                ("build_plan_kernel",))
+    ptxas_contract = ptxas_kernels(_build.BUILD_LOG.get("contract", {}).get("ptxas", []),
+                                   ("traj_source_kernel", "traj_body_force_kernel"))
     emit("build", seconds=time.perf_counter() - t0, dir=str(_build.build_dir()),
          nvcc={k: v for k, v in _build.BUILD_LOG.items()}, ptxas_k3_k5=ptxas_k3_k5,
          k3_k5_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
                                for v in ptxas_k3_k5.values()),
          ptxas_plan=ptxas_plan,
          plan_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
-                              for v in ptxas_plan.values()))
+                              for v in ptxas_plan.values()),
+         ptxas_contract=ptxas_contract,
+         contract_spill_bytes=sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                                  for v in ptxas_contract.values()))
 
     # 3. kernels vs plain at size^3
     gen = torch.Generator().manual_seed(args.seed)
@@ -1472,6 +1489,41 @@ def main(argv=None) -> int:
             shp = [72, 72, 72]
             shp[axis] = n_loc + 2 * len(FD8.FD8_COEFFS)
             k5_check(f"n_loc {n_loc}", torch.randn([3] + shp, generator=edge_gen).to(dev), axis)
+
+    # The matvec's contractions, bit for bit: at size^3 and nt = 4 (the
+    # vector path, unrolled), at nt = 1, 6 and 12 (12: the slices in a loop),
+    # and on the scalar path: an odd grid, and an adjoint field one element
+    # off 16-byte alignment; the body force with and without its a term.
+    contract_gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+
+    def contract_check(label, nt, fshape, misalign=False):
+        def rnd(*dims):
+            return torch.randn(dims + fshape, generator=contract_gen, device=dev)
+
+        vt_c, grad_c, a_c = rnd(3), rnd(nt + 1, 3), rnd(3)
+        lam_c = list(rnd(nt + 1))
+        if misalign:
+            lam_c[1] = torch.randn(math.prod(fshape) + 1, generator=contract_gen,
+                                   device=dev)[1:].view(fshape)
+        runs = [("traj_source", "", KC.traj_sources(vt_c, grad_c),
+                 KC.traj_sources_plain(vt_c, grad_c))]
+        for a, sfx in ((None, ""), (a_c, " + a")):
+            runs.append(("traj_body_force", sfx,
+                         KC.traj_body_force(lam_c, grad_c, 1.0 / nt, a=a),
+                         KC.traj_body_force_plain(lam_c, grad_c, 1.0 / nt, a)))
+        for key, sfx, got, ref in runs:
+            differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            err = max_err(got, ref)
+            checks.append(dict(case=f"{key}{sfx} {label} nt={nt} {list(fshape)}",
+                               max_abs_err=err, differ=differ,
+                               ok=differ == 0 and got.shape == ref.shape))
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    contract_check("at the main path's shape", 4, shape)
+    for nt in (1, 6, 12):
+        contract_check("unrolled" if nt < 12 else "in a loop", nt, (32, 32, 32))
+    contract_check("scalar path, odd grid", 4, (33, 17, 5))
+    contract_check("scalar path, misaligned adjoint field", 4, (32, 32, 32), misalign=True)
 
     v_smooth = S.random_velocity(gen, shape, amplitude=0.6, device=dev)
     foot = SL.trace_characteristic(v_smooth, 0.25, "cubic_bspline", 1.0)
@@ -1821,7 +1873,7 @@ def main(argv=None) -> int:
                 return 1
         del res
 
-    mres, fields = drive("multires", _K1_KEYS + ["apply_plan"] + _FUSED,
+    mres, fields = drive("multires", _K1_KEYS + ["apply_plan"] + _FUSED + _CONTRACTIONS,
                          lambda: R.register_multires(pair.m0, pair.m1, variant="fd8-cubic",
                                                      n_levels=3, use_fused_matvec=True,
                                                      device=dev))
@@ -1960,7 +2012,7 @@ def main(argv=None) -> int:
         "--device", "cuda"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc, fields = drive("cli", _K1_KEYS + ["apply_plan"], lambda: CLI.main(argv))
+        rc, fields = drive("cli", _K1_KEYS + ["apply_plan"] + _CONTRACTIONS, lambda: CLI.main(argv))
     lines = out.getvalue().splitlines()
     ok = (rc == 0 and not fields["missing"] and not fields["plain_runs"]
           and any("converged=" in ln for ln in lines))
@@ -1970,7 +2022,7 @@ def main(argv=None) -> int:
         return 1
 
     # the gradient-descent baseline (Table 8), five iterations
-    gd, fields = drive("baseline_gd", _K1_KEYS + ["apply_plan"],
+    gd, fields = drive("baseline_gd", _K1_KEYS + ["apply_plan", "traj_body_force"],
                        lambda: BGD.solve(pair.m0, pair.m1, R.make_transport_config("fd8-cubic"),
                                          max_iters=5))
     ok = (not fields["missing"] and not fields["plain_runs"] and len(gd.history) >= 1
@@ -2084,7 +2136,7 @@ def main(argv=None) -> int:
     argv = ["--smoke", "--device", "cuda"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc, fields = drive("serve_cli", _K1_KEYS + ["apply_plan"], lambda: SCLI.main(argv))
+        rc, fields = drive("serve_cli", _K1_KEYS + ["apply_plan"] + _CONTRACTIONS, lambda: SCLI.main(argv))
     lines = out.getvalue().splitlines()
     ok = (rc == 0 and not fields["missing"] and not fields["plain_runs"]
           and any("completed 6/6" in ln for ln in lines))
@@ -2471,6 +2523,28 @@ def main(argv=None) -> int:
                                m * K.QUERY_WEIGHT_OPS[basis]),
                 shape=list(foot.shape))
         rows["build_plan:cubic_bspline" + sfx]["other_bases_ms"] = others
+    # the matvec's contractions at size^3, nt = 4: the byte bound reads every
+    # input plane and writes every output plane once; the body force with
+    # its a term, as the matvec and the gradient launch it
+    contract_gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    vt_c, grad_c, a_c = (torch.randn(dims + shape, generator=contract_gen, device=dev)
+                         for dims in ((3,), (5, 3), (3,)))
+    lam_c = list(torch.randn((5,) + shape, generator=contract_gen, device=dev))
+    rows["traj_source"] = dict(
+        ms=timed(lambda: KC.traj_sources(vt_c, grad_c), reps),
+        plain_ms=timed(lambda: KC.traj_sources_plain(vt_c, grad_c), plain_reps),
+        library_ms=None,
+        bound=bound_ms(nbytes(vt_c, grad_c) + 5 * 4 * m, 5 * m * KC.SOURCE_OPS),
+        shape=list(grad_c.shape))
+    rows["traj_body_force"] = dict(
+        ms=timed(lambda: KC.traj_body_force(lam_c, grad_c, 0.25, a=a_c), reps),
+        plain_ms=timed(lambda: KC.traj_body_force_plain(lam_c, grad_c, 0.25, a_c),
+                       plain_reps),
+        library_ms=None,
+        bound=bound_ms(nbytes(grad_c, a_c, *lam_c) + nbytes(a_c),
+                       m * (5 * KC.BODY_OPS + KC.ADD_OPS)),
+        shape=list(grad_c.shape))
+    del vt_c, grad_c, a_c, lam_c
     pad = SL.DISPLACEMENT_BOUND + 1
     uniform_q = k24_query_sets(foot, args.seed, dev)["uniform"][1]
     for basis in K4_BASES:

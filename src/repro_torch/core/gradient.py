@@ -52,8 +52,8 @@ def evaluate(m0: torch.Tensor, m1: torch.Tensor, v: torch.Tensor, beta: float,
                                      plan_adj=plan_adj)
 
         grad_m_traj = _tr.grad_traj(m_traj, cfg) if cfg.use_plan else None
-        body = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj)
-        g = _spec.apply_regop(v, beta, gamma, shard=cfg.shard) + body
+        g = _tr.body_force(lam_traj, m_traj, cfg, grad_m_traj=grad_m_traj,
+                           regop=lambda: _spec.apply_regop(v, beta, gamma, shard=cfg.shard))
 
         return GradientState(
             g=g,

@@ -11,10 +11,13 @@ footpoints (K4) and recompute the trajectory gradients. With
 ``cfg.use_fused_matvec`` the two transports run through kernel K3
 (``kernels.interp3d.apply_plan_fused``): each step gathers the stacked
 [field, source] coefficients through the plan and applies the RK2 update in
-the same kernel. The two contractions over the cached trajectory gradients
-(einsums in JAX, left to XLA) are PyTorch broadcast products and sums. With
-``cfg.shard`` the plans live in the halo-extended slab's frame, so the fused
-path gathers from halo-extended coefficients (K3 on the slab path).
+the same kernel. The two contractions over the trajectory gradients
+(einsums in JAX, left to XLA), the incremental state's sources and the
+trapezoid body force with ``beta A vt`` added, run through the kernel pair
+of ``kernels.contract`` on every path. With ``cfg.shard`` the plans live in
+the halo-extended slab's frame, so the fused path gathers from
+halo-extended coefficients (K3 on the slab path); the contractions are
+pointwise and take the slab's own fields.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..distributed import halo as _halo
+from ..kernels import contract as _ct
 from ..kernels import interp3d as _k
 from . import gradient as _grad
 from . import interp as _interp
@@ -43,10 +47,8 @@ def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
     nt = int(cfg.nt)
     dt = 1.0 / nt
     # -vt.grad(m_j) for all time steps in one contraction (the JAX einsum
-    # "c...,tc...->t..."). Written as a broadcast product and sum: on the card
-    # torch.einsum lowers both contractions to batched cuBLAS gemv calls that
-    # took ~19 ms each at 256^3 (PERF.md, PR 11).
-    sources = -torch.sum(vt[None] * gs.grad_m_traj, dim=1)
+    # "c...,tc...->t...").
+    sources = _ct.traj_sources(vt, gs.grad_m_traj)
 
     mt = torch.zeros_like(gs.m_traj[0])
     for j in range(nt):
@@ -66,15 +68,11 @@ def _matvec_fused(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
         coefs = _fused_coefficients(torch.stack([lam, divv * lam]), cfg)
         lam = _k.apply_plan_fused(coefs, gs.plan_adj, divv, "inc_adjoint", dt)
         traj.append(lam)
-    lam_traj = torch.stack(traj[::-1])
 
-    w = torch.full((nt + 1,), dt, dtype=lam_traj.dtype, device=lam_traj.device)
-    w[0] = 0.5 * dt
-    w[-1] = 0.5 * dt
-    # Trapezoid body force, the JAX einsum "t,t...,tc...->c...".
-    body = torch.sum(w.reshape(-1, 1, 1, 1, 1) * lam_traj[:, None] * gs.grad_m_traj,
-                     dim=0)
-    return _spec.apply_regop(vt, beta, gamma, shard=cfg.shard) + body
+    # beta A vt + the trapezoid body force (the JAX einsum "t,t...,tc...->c..."),
+    # the adjoint fields in forward time order.
+    return _ct.traj_body_force(traj[::-1], gs.grad_m_traj, dt,
+                               a=_spec.apply_regop(vt, beta, gamma, shard=cfg.shard))
 
 
 def matvec(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
@@ -88,5 +86,5 @@ def matvec(vt: torch.Tensor, gs: _grad.GradientState, v: torch.Tensor,
     lt1 = meas.gn_terminal(mt1, gs.m_traj[-1], None, cfg, cache=gs.measure_cache)
     lt_traj = _tr.solve_adjoint(lt1, v, cfg, foot_adj=gs.foot_adj,
                                 divv=gs.divv, plan_adj=gs.plan_adj)
-    body = _tr.body_force(lt_traj, gs.m_traj, cfg, grad_m_traj=gs.grad_m_traj)
-    return _spec.apply_regop(vt, beta, gamma, shard=cfg.shard) + body
+    return _tr.body_force(lt_traj, gs.m_traj, cfg, grad_m_traj=gs.grad_m_traj,
+                          regop=lambda: _spec.apply_regop(vt, beta, gamma, shard=cfg.shard))

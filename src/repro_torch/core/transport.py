@@ -13,10 +13,12 @@ Shapes: scalar fields (N1,N2,N3); trajectories (nt+1, N1,N2,N3); velocities
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from ..distributed import halo as _halo
+from ..kernels import contract as _ct
 from . import derivatives as _deriv
 from . import semilag as _sl
 
@@ -139,7 +141,7 @@ def solve_inc_state(vt: torch.Tensor, v: torch.Tensor, m_traj: torch.Tensor,
     if grad_m_traj is None:
         # Plan-free path: the trajectory's gradients are recomputed per call.
         grad_m_traj = grad_traj(m_traj, cfg)
-    sources = -torch.sum(vt[None] * grad_m_traj, dim=1)
+    sources = _ct.traj_sources(vt, grad_m_traj)
     mt = torch.zeros_like(m_traj[0])
     for j in range(cfg.nt):
         mt_adv, s0_adv = _sl.sl_step_many(torch.stack([mt, sources[j]]), foot,
@@ -158,17 +160,17 @@ def solve_inc_adjoint(mt1: torch.Tensor, v: torch.Tensor, cfg: TransportConfig,
 
 
 def body_force(lam_traj: torch.Tensor, m_traj: torch.Tensor, cfg: TransportConfig,
-               grad_m_traj: torch.Tensor | None = None) -> torch.Tensor:
-    """Trapezoidal  int_0^1 lambda grad m dt  over the stored trajectories."""
-    dt = _dt(cfg)
-    nt1 = m_traj.shape[0]
-    w = torch.full((nt1,), dt, dtype=m_traj.dtype, device=m_traj.device)
-    w[0] = 0.5 * dt
-    w[-1] = 0.5 * dt
-    if grad_m_traj is None:
-        grad_m_traj = grad_traj(m_traj, cfg)
-    acc = torch.zeros((3,) + tuple(m_traj.shape[1:]), dtype=m_traj.dtype,
-                      device=m_traj.device)
-    for t in range(nt1):
-        acc = acc + w[t] * lam_traj[t][None] * grad_m_traj[t]
-    return acc
+               grad_m_traj: torch.Tensor | None = None,
+               regop: Callable[[], torch.Tensor] | None = None) -> torch.Tensor:
+    """Trapezoidal  int_0^1 lambda grad m dt  over the stored trajectories,
+    plus ``regop()`` where given (the gradient's and the matvec's
+    regularisation term A v). With cached trajectory gradients the term goes
+    into the ``traj_body_force`` launch; gradients computed here (plan-free)
+    are freed first and the term is added after it: A v's FFT temporaries
+    beside them would raise a plan-free solve's peak memory."""
+    lam = lam_traj.unbind(0)
+    if grad_m_traj is not None:
+        return _ct.traj_body_force(lam, grad_m_traj, _dt(cfg),
+                                   a=None if regop is None else regop())
+    body = _ct.traj_body_force(lam, grad_traj(m_traj, cfg), _dt(cfg))
+    return body if regop is None else body.add_(regop())

@@ -11,8 +11,9 @@ file does not import):
 Tolerances: K1 and K5 rtol 1e-5 / atol 1e-4; K2, K3 and K4 (fp32 and bf16
 weights) 1e-5 * max(|plain|, 1). The bf16 weights of kernel and plain version are
 bit-equal (``kernels/interp3d.py``), so the bound is fp32 accumulation noise.
-The plan build (``build_plan_kernel``) is held to the plain build on the
-same card bit for bit. K6: fp32 ``tests/test_flashattn.py``'s rtol = atol = 2e-4; bf16 rtol 8e-3
+The plan build (``build_plan_kernel``) and the matvec's contractions
+(``traj_source_kernel``, ``traj_body_force_kernel``) are held to their plain
+versions on the same card bit for bit. K6: fp32 ``tests/test_flashattn.py``'s rtol = atol = 2e-4; bf16 rtol 8e-3
 (one ulp of the bf16 output, at most 2^-7 |x|: kernel and plain version both
 accumulate in fp32 and round once) and atol 1e-4 (fp32 order noise of outputs
 near 0), with at most 5% of the elements differing at all.
@@ -29,11 +30,14 @@ import torch.distributed as dist
 from repro_torch import checkpoint as CK
 from repro_torch import serve as SV
 from repro_torch.configs import ARCHS
+from repro_torch.core import gradient as GR
+from repro_torch.core import hessian as HS
 from repro_torch.core import interp as I
 from repro_torch.core import registration as R
 from repro_torch.core import semilag as SL
 from repro_torch.data import synthetic as S
 from repro_torch.distributed import group as G
+from repro_torch.kernels import contract as KC
 from repro_torch.kernels import counts
 from repro_torch.kernels import fd8 as FD8
 from repro_torch.kernels import flashattn as FA
@@ -321,6 +325,102 @@ def test_build_plan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         I.build_plan(q.transpose(1, 3), "linear")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         I.build_plan(q, "linear", torch.float16)
+
+
+def _contract_inputs(dev, nt, shape, seed, misalign=False):
+    """vt, the trajectory gradients, the nt + 1 adjoint fields and an a term;
+    ``misalign``: the second adjoint field one element off 16-byte alignment."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*dims):
+        return torch.randn(dims + shape, generator=gen, device=dev)
+
+    vt, grad, a = rnd(3), rnd(nt + 1, 3), rnd(3)
+    lam = list(rnd(nt + 1))
+    if misalign:
+        lam[1] = torch.randn(math.prod(shape) + 1, generator=gen, device=dev)[1:].view(shape)
+    return vt, grad, lam, a
+
+
+def _bits_equal(got, ref):
+    return got.shape == ref.shape and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+#: (nt, field shape, misaligned adjoint field): the main path's shape, a
+#: small grid, nt + 1 unrolled (1, 6) and in a loop (12), and the scalar
+#: path (an odd grid, a misaligned field)
+CONTRACT_CASES = {"256^3": (4, (256, 256, 256), False), "32^3": (4, (32, 32, 32), False),
+                  "nt1": (1, (32, 32, 32), False), "nt6": (6, (32, 32, 32), False),
+                  "nt12_loop": (12, (32, 32, 32), False), "odd": (4, (33, 17, 5), False),
+                  "misaligned": (4, (32, 32, 32), True)}
+
+
+@pytest.mark.parametrize("case", sorted(CONTRACT_CASES))
+def test_contraction_kernels_match_plain_bit_for_bit(cuda, case):
+    nt, shape, misalign = CONTRACT_CASES[case]
+    vt, grad, lam, a = _contract_inputs(cuda, nt, shape, 3, misalign)
+    counts.reset()
+    assert _bits_equal(KC.traj_sources(vt, grad), KC.traj_sources_plain(vt, grad))
+    for a_term in (None, a):
+        assert _bits_equal(KC.traj_body_force(lam, grad, 1.0 / nt, a=a_term),
+                           KC.traj_body_force_plain(lam, grad, 1.0 / nt, a_term))
+    torch.cuda.synchronize()
+    assert counts.snapshot() == {"traj_source": 1, "traj_body_force": 2}
+
+
+@pytest.mark.parametrize("kw", [dict(use_fused_matvec=True),
+                                dict(use_plan=False, mixed_precision=True)],
+                         ids=["fused_fp32", "planfree_bf16"])
+def test_contractions_launch_once_a_matvec_and_a_gradient(cuda, kw, monkeypatch):
+    """A 32^3 registration: one launch of each contraction every matvec, one
+    body force every gradient evaluation, and no plain version."""
+    calls = {"matvec": 0, "gradient": 0}
+
+    def spy(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(HS, "matvec", spy("matvec", HS.matvec))
+    monkeypatch.setattr(GR, "evaluate", spy("gradient", GR.evaluate))
+    pair = S.make_pair(0, (32, 32, 32), device=cuda)
+    counts.reset()
+    res = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    torch.cuda.synchronize()
+    launched = counts.snapshot()
+    assert calls["matvec"] == res.matvecs > 0 and calls["gradient"] > 0
+    assert launched["traj_source"] == calls["matvec"]
+    assert launched["traj_body_force"] == calls["matvec"] + calls["gradient"]
+    assert not [k for k in launched if k.startswith("plain:")]
+
+
+@pytest.mark.parametrize("kw", [dict(use_fused_matvec=True),
+                                dict(use_plan=False, mixed_precision=True)],
+                         ids=["fused_fp32", "planfree_bf16"])
+def test_solve_with_contraction_kernels_equals_solve_with_plain_versions(cuda, kw,
+                                                                         monkeypatch):
+    """A 32^3 solve takes the same counts and ends at the same v, bit for
+    bit, with the kernels and with their plain versions run on the card."""
+    pair = S.make_pair(0, (32, 32, 32), device=cuda)
+    got = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    monkeypatch.setattr(KC, "traj_sources", KC.traj_sources_plain)
+    monkeypatch.setattr(KC, "traj_body_force", KC.traj_body_force_plain)
+    ref = R.register(pair.m0, pair.m1, device=cuda, **kw)
+    assert _counts(got) == _counts(ref) and got.matvecs == ref.matvecs
+    assert torch.equal(got.v.view(torch.int32), ref.v.view(torch.int32))
+
+
+def test_contraction_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    vt, grad, lam, a = _contract_inputs(cuda, 4, (8, 8, 8), 0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        KC.traj_sources(vt.double(), grad.double())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        KC.traj_body_force([x.transpose(0, 2) for x in lam], grad, 0.25)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        KC.traj_body_force(lam, grad, 0.25, a=a.transpose(1, 3))
+    with pytest.raises(ValueError, match="time slices"):
+        KC.traj_sources(vt, torch.zeros((KC.MAX_SLICES + 1, 3, 8, 8, 8), device=cuda))
 
 
 def test_k4_on_two_cards(cuda):

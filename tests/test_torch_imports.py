@@ -113,6 +113,15 @@ def test_import_scan_covers_checkpoint_and_serve():
         assert f"src/repro_torch/{name}.py" in scanned
 
 
+def test_import_scan_covers_the_kernel_wrappers():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("_build", "counts", "fd8", "interp3d", "pencil", "plan", "prefilter",
+                 "contract"):
+        assert f"src/repro_torch/kernels/{name}.py" in scanned
+    for name in ("interp3d", "pencil", "plan", "contract"):
+        assert (ROOT / "src/repro_torch/csrc" / f"{name}.cu").exists()
+
+
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b",
                                   "whisper-large-v3", "internvl2-1b"])
 def test_unported_lm_families_raise_not_implemented(arch):
